@@ -5,10 +5,13 @@ its module names and runs on an NVIDIA H100 (sm_90a), with the Pallas
 kernels of its main path rewritten as hand-written CUDA (`csrc/`).  It
 imports torch and never jax.
 
-Ported so far: wav → log-mel → patches → 12-layer audio ViT (every layer
-through the K1 kernel chain, ops/encoder_attention.py) → pooled audio
-embedding; the causal text tower and its pooler → text embedding; and the
-contrastive score, served by `CacoEngine`.
+Ported so far: wav → log-mel (unfused, or the fused K8 kernel) → patches →
+12-layer audio ViT, each layer on the route the JAX package takes for its
+length and dtype (K1, K2 or K3 kernel chains, or the einsum layer;
+ops/encoder_attention.py) → pooled audio embedding; the causal text tower
+and its pooler → text embedding; and the contrastive score, served by
+`CacoEngine` (embed_audio at 10-s and 30-s buffers, embed_audio_long,
+audio_patch_batch, embed_texts, score).
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,8 @@ with torch dtypes in place of jnp dtypes.  Canonical model dimensions follow
 the JAX checkpoint loader of the reference (src/caco/load_model.py:23-49).
 
 Left out until their slices are ported: the AudioMAE configs and the
-`flash_attention` switch (the port's audio encoder always runs the K1 layer
-chain at inference; see ops/encoder_attention.py).
+`flash_attention` switch (the port's audio encoder always takes the JAX
+package's kernel routes at inference; see ops/encoder_attention.py).
 """
 
 from __future__ import annotations

@@ -73,21 +73,32 @@ def _windowed_dft_matrices(window_length: int, fft_size: int) -> tuple[np.ndarra
     return cr, ci
 
 
+@functools.lru_cache(maxsize=8)
+def _device_matrices(cfg: FrontendConfig, device: torch.device):
+    """(re|im DFT matrix, mel matrix) on `device`, copied once: a copy from
+    pageable host memory waits for the device, so it stays out of the
+    per-bucket path."""
+    cr, ci = _windowed_dft_matrices(cfg.window_length, cfg.fft_size)
+    return (torch.from_numpy(np.concatenate([cr, ci], axis=1)).to(device),
+            torch.from_numpy(linear_to_mel_matrix(cfg)).to(device))
+
+
 def stft_magnitude(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """Magnitude STFT, tfio semantics.  audio: (..., num_samples) → (..., F, nbins).
 
     Frames are strided views of the end-padded signal (`unfold`), multiplied
-    by the re|im-concatenated windowed-DFT matrix in one fp32 product."""
+    by the re|im-concatenated windowed-DFT matrix in one fp32 product.  The
+    same form serves every length: the JAX package's segmented STFT above
+    2000 frames (dsp.py:36-40, :139-152) works around XLA's lowering on the
+    TPU and computes the same fp32 values."""
     hop, win = cfg.hop_length, cfg.window_length
     num_frames = num_stft_frames(audio.shape[-1], hop)
-    cr, ci = _windowed_dft_matrices(win, cfg.fft_size)
-    nb = cr.shape[1]
+    nb = cfg.num_spectrogram_bins
     total = (num_frames - 1) * hop + win
     x = audio.float()
     x = torch.nn.functional.pad(x, (0, max(0, total - x.shape[-1])))
     frames = x.unfold(-1, win, hop)  # (..., F, win)
-    c = torch.from_numpy(np.concatenate([cr, ci], axis=1)).to(x.device)
-    acc = frames @ c
+    acc = frames @ _device_matrices(cfg, x.device)[0]
     re, im = acc[..., :nb], acc[..., nb:]
     return torch.sqrt(re * re + im * im)
 
@@ -95,5 +106,5 @@ def stft_magnitude(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
 def log_mel_spectrogram(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """audio (..., num_samples) → log-mel (..., num_frames, num_mels), fp32."""
     spec = stft_magnitude(audio, cfg)
-    mel = spec @ torch.from_numpy(linear_to_mel_matrix(cfg)).to(spec.device)
+    mel = spec @ _device_matrices(cfg, spec.device)[1]
     return torch.log(mel + cfg.log_offset) * cfg.log_scale + cfg.log_bias

@@ -1,0 +1,138 @@
+"""K8, the fused frontend: waveform → log-mel in one kernel
+(cacophony_tpu/frontend/fused.py).
+
+Audio arrives as hop-major rows (B, R, hop), a free reshape of the
+zero-padded buffer (`buffer_to_rows`).  The kernel (csrc/log_mel.cu,
+replacing the Pallas `fused_log_mel:153` with fast_dft=False) runs the
+windowed DFT against the lane-padded re|im matrix, the magnitude, the mel
+product and the log, and writes only the (B, F, num_mels) log-mel.  Both
+products are full fp32.  Its output equals the unfused chain
+(frontend/dsp.py) up to the order of fp32 sums, so choosing it changes no
+result.  The patchify transpose and the masks stay in PyTorch, as they
+stay in XLA in the JAX package.
+
+The JAX package runs the kernel only when one clip fits the TPU's VMEM
+(`fits_vmem`: 10-s buffers, not 30-s ones).  The Hopper kernel tiles by
+frame, so it has no such limit and runs at every buffer length.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+
+from cacophony_tpu_torch.configs import FrontendConfig, PatchConfig
+from cacophony_tpu_torch.frontend.dsp import _windowed_dft_matrices, linear_to_mel_matrix
+from cacophony_tpu_torch.frontend.patchify import patchify_spectrogram
+from cacophony_tpu_torch.ops import _kernels as kern
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=8)
+def _padded_matrices(front: FrontendConfig):
+    """DFT (cos | sin, Hann folded in) and mel matrices, each bin axis
+    zero-padded to a multiple of 128 (fused.py:52).  Padded bins are zero
+    columns → zero magnitude → times zero mel rows: exact."""
+    cr, ci = _windowed_dft_matrices(front.window_length, front.fft_size)
+    mel = linear_to_mel_matrix(front)
+    nbins = cr.shape[1]
+    nbins_pad = _round_up(nbins, 128)
+    c = np.concatenate([np.pad(cr, [[0, 0], [0, nbins_pad - nbins]]),
+                        np.pad(ci, [[0, 0], [0, nbins_pad - nbins]])], axis=1)
+    mel = np.pad(mel, [[0, nbins_pad - nbins], [0, 0]])
+    return c, mel, nbins_pad
+
+
+@functools.lru_cache(maxsize=8)
+def _device_matrices(front: FrontendConfig, device: torch.device):
+    """The padded matrices on `device`, copied once (a copy from pageable
+    host memory waits for the device, so it stays out of the per-bucket path)."""
+    c, mel, _ = _padded_matrices(front)
+    return torch.from_numpy(c).to(device), torch.from_numpy(mel).to(device)
+
+
+def audio_rows_for(num_frames: int, front: FrontendConfig) -> int:
+    """Rows of the (R, hop) hop-major layout: num_frames + ⌈win / hop⌉."""
+    return num_frames + -(-front.window_length // front.hop_length)
+
+
+def buffer_to_rows(bufs: torch.Tensor, num_frames: int, front: FrontendConfig) -> torch.Tensor:
+    """(B, samples) zero-padded buffers → (B, R, hop) hop-major rows (a pad
+    and a reshape)."""
+    need = audio_rows_for(num_frames, front) * front.hop_length
+    b, s = bufs.shape
+    bufs = torch.nn.functional.pad(bufs, (0, need - s)) if s < need else bufs[:, :need]
+    return bufs.reshape(b, -1, front.hop_length)
+
+
+def fused_log_mel_plain(audio_rows: torch.Tensor, front: FrontendConfig,
+                        num_frames: int) -> torch.Tensor:
+    """The kernel's chain in torch fp32, in the Pallas body's segmented form:
+    frame f covers rows f..f+n_seg-1, so the DFT is a sum of n_seg products."""
+    hop, win = front.hop_length, front.window_length
+    c, mel = _device_matrices(front, audio_rows.device)
+    nbp = _padded_matrices(front)[2]
+    a = audio_rows.float()
+    acc = 0.0
+    for k in range(-(-win // hop)):
+        lo, hi = k * hop, min((k + 1) * hop, win)
+        acc = acc + a[:, k:num_frames + k, :hi - lo] @ c[lo:hi]
+    re, im = acc[..., :nbp], acc[..., nbp:]
+    m = torch.sqrt(re * re + im * im) @ mel
+    return torch.log(m + front.log_offset) * front.log_scale + front.log_bias
+
+
+def fused_log_mel(audio_rows: torch.Tensor, front: FrontendConfig,
+                  num_frames: int) -> torch.Tensor:
+    """(B, R, hop) fp32 rows → log-mel (B, num_frames, num_mels) fp32
+    (csrc/log_mel.cu).  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if kern._device_kind(audio_rows) == "cpu":
+        return fused_log_mel_plain(audio_rows, front, num_frames)
+    kern._need(audio_rows.dtype == torch.float32 and audio_rows.is_contiguous()
+               and audio_rows.dim() == 3 and audio_rows.shape[2] == front.hop_length,
+               "rows must be contiguous fp32 (B, R, hop)")
+    b, rows, hop = audio_rows.shape
+    kern._need(b > 0 and num_frames > 0 and rows >= audio_rows_for(num_frames, front),
+               f"{rows} rows for {num_frames} frames")
+    kern._need(front.num_mels == 128, f"num_mels {front.num_mels} (the kernel takes 128)")
+    c, mel = _device_matrices(front, audio_rows.device)
+    nbp = _padded_matrices(front)[2]
+    out = torch.empty(b, num_frames, front.num_mels, dtype=torch.float32,
+                      device=audio_rows.device)
+    kern._launch("log_mel", audio_rows.device, audio_rows.data_ptr(), c.data_ptr(),
+                 mel.data_ptr(), out.data_ptr(), b, rows, hop, front.window_length, num_frames,
+                 nbp, front.num_spectrogram_bins, front.num_mels, float(front.log_offset),
+                 float(front.log_scale), float(front.log_bias))
+    return out
+
+
+def patch_index_arrays(lens: torch.Tensor, front: FrontendConfig,
+                       patch: PatchConfig) -> Dict[str, torch.Tensor]:
+    """time/freq indices + mask for a batch from the true lengths alone
+    (equal to patchify_spectrogram's integer outputs)."""
+    tp, seq_len = patch.time_patch_size, patch.patches_seq_len
+    f1 = front.num_mels // patch.freq_patch_size
+    valid_frames = -(-lens.to(torch.int32) // front.hop_length)
+    valid_patches = ((valid_frames // tp) * f1)[:, None]
+    positions = torch.arange(seq_len, dtype=torch.int32, device=lens.device)[None, :]
+    mask = (positions < valid_patches).to(torch.int32)
+    inds = positions * mask
+    return {"audio_time_inds": inds // f1, "audio_freq_inds": inds % f1, "audio_mask": mask}
+
+
+def fused_batch_wav_to_patches(bufs: torch.Tensor, lens: torch.Tensor, front: FrontendConfig,
+                               patch: PatchConfig) -> Dict[str, torch.Tensor]:
+    """(B, samples) zero-padded buffers + (B,) lengths → the patch dict of
+    `wav_to_patches`, with the log-mel from K8.  Patches stay fp32 (the
+    encoder casts them, which equals casting before the patchify)."""
+    num_frames = -(-bufs.shape[1] // front.hop_length)
+    logmel = fused_log_mel(buffer_to_rows(bufs, num_frames, front), front, num_frames)
+    valid_frames = -(-lens.to(torch.int32) // front.hop_length)
+    return patchify_spectrogram(logmel, valid_frames, patch)

@@ -2,10 +2,22 @@
 
 Dense patch projection, sin-cos TIME embedding from explicit time indices,
 learned frequency embedding gathered by freq indices, N pre-LN ViT layers,
-final LayerNorm (reference mae.py:107-139).  Every layer runs through K1
-(`ops.encoder_attention.fused_layer`), as the JAX package does at
-inference.  The MAE decoder and the training path (dropout, drop-path)
-come with their own slices.
+final LayerNorm (reference mae.py:107-139).  Each layer takes the route the
+JAX package's `_vit_block` takes at inference (models/audio.py:150-185),
+decided by `ops.encoder_attention.layer_route` from the sequence length,
+the widths and the compute dtype:
+
+- "k1": the whole layer through K1 (`fused_layer`);
+- "k2" / "k3": the block half through K2 / K3 (`fused_block`), then the MLP
+  outside the kernel with XLA's numerics: dense rounds `x @ w` to the
+  compute dtype before adding the bias cast to it, silu runs in the
+  compute dtype, and the residual is added in it;
+- "einsum": no kernel — LayerNorm, the einsum attention with the −1e30 key
+  bias (`ops.attention.multi_head_attention`), the residual, LN2, the MLP.
+
+The JAX package computes the MLP and the einsum attention in XLA outside
+any Pallas kernel, so they stay PyTorch products here.  The MAE decoder and
+the training path (dropout, drop-path) come with their own slices.
 """
 
 from __future__ import annotations
@@ -24,8 +36,8 @@ from cacophony_tpu_torch.models.layers import (
     normal_init,
     sincos_time_embedding,
 )
-from cacophony_tpu_torch.ops.attention import Attention
-from cacophony_tpu_torch.ops.encoder_attention import fused_layer
+from cacophony_tpu_torch.ops import encoder_attention as ea
+from cacophony_tpu_torch.ops.attention import Attention, multi_head_attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default (reference audio tower uses it)
 
@@ -63,6 +75,39 @@ class AudioEncoder(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size)
 
 
+def _mlp(p: MLP, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Dense → silu → Dense outside the kernels (JAX `_vit_block`:170-172,
+    :190-194).  silu is h · sigmoid(h) in the compute dtype, as
+    jax.nn.silu writes it; where XLA rounds inside it in bf16 is the
+    backend's choice, so bf16 agrees with JAX to a tolerance, not bit for bit."""
+    h = dense(p.w1, h, dtype)
+    return dense(p.w2, h * torch.sigmoid(h), dtype)
+
+
+def _einsum_layer(blk: ViTBlock, x, mask, num_heads: int, dtype):
+    """The no-kernel layer (JAX `_vit_block`:180-203 with flash_mask set)."""
+    h = layer_norm(blk.ln1, x, LN_EPS)
+    x = x + multi_head_attention(blk.attn, h, num_heads=num_heads, dtype=dtype,
+                                 flash_mask=mask)
+    return x + _mlp(blk.mlp, layer_norm(blk.ln2, x, LN_EPS), dtype)
+
+
+def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                  route: str, dtype: torch.dtype) -> torch.Tensor:
+    """One inference layer by the route `layer_route` chose."""
+    if route == "k1":
+        return ea.fused_layer(blk, x, mask, num_heads, LN_EPS)
+    if route in ("k2", "k3"):
+        y, ln2y = ea.fused_block(blk, x, mask, num_heads, LN_EPS, blocked=route == "k3")
+        return y + _mlp(blk.mlp, ln2y, dtype)
+    if route == "einsum":
+        return _einsum_layer(blk, x, mask, num_heads, dtype)
+    # "k4", "k5", "k6": no serving buffer reaches them at caco_base or caco_tiny widths
+    raise NotImplementedError(
+        f"encoder layer route {route!r} (the JAX package's {route.upper()} kernel) is not "
+        f"ported yet: ROADMAP queue A item 2, the training slice (K4, K5, K6, K7)")
+
+
 def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
                         patches: torch.Tensor,    # (B, S, patch_size)
                         time_inds: torch.Tensor,  # (B, S) int
@@ -73,6 +118,7 @@ def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
     x = dense(p.patch_proj, patches.to(dtype), dtype)
     x = x + sincos_time_embedding(time_inds, cfg.hidden_size).to(x.dtype)
     x = x + p.freq_pos_embed.to(x.dtype)[freq_inds.long()]
+    route, _ = ea.layer_route(x.shape[1], cfg.hidden_size, cfg.intermediate_size, dtype)
     for blk in p.blocks:
-        x = fused_layer(blk, x, mask, cfg.num_heads, LN_EPS)
+        x = encoder_layer(blk, x, mask, cfg.num_heads, route, dtype)
     return layer_norm(p.ln_f, x, LN_EPS)

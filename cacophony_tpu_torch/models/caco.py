@@ -64,7 +64,9 @@ def audio_pooler_apply(p: AudioPooler, cfg: CacoConfig, hidden: torch.Tensor,
     k = k.reshape(b, s, m, hd)
     v = v.reshape(b, s, m, hd)
     q = p.query.reshape(m, hd).to(hidden.dtype)
-    q = q / torch.sqrt(torch.tensor(float(hd), dtype=q.dtype, device=q.device))
+    # sqrt(hd) in q's dtype, as a Python number (a small tensor copied to the
+    # card would wait for the device)
+    q = q / float(torch.tensor(float(hd), dtype=q.dtype).sqrt())
     logits = torch.einsum("hd,bjhd->bhj", q, k)
     if mask is not None:
         logits = torch.where(mask[:, None] > 0, logits.float(), torch.finfo(torch.float32).min)

@@ -1,19 +1,22 @@
-"""Hand-written CUDA kernels of K1, their plain PyTorch versions, and the build.
+"""Hand-written CUDA kernels, the build, and K1's plain PyTorch versions.
 
 The sources live in `cacophony_tpu_torch/csrc/` and are compiled by `nvcc`
 into one shared library with a plain C interface, loaded with ctypes (no
-PyTorch headers, so the build takes seconds).  The build runs at the first
-launch, never at import, into `cacophony_tpu_torch/_build/` (listed in
-.gitignore); the library name carries a hash of the sources, so an edited
-source is rebuilt.  A failed build raises.
+PyTorch headers, so the build takes seconds).  Each `.cu` file is compiled
+by its own `nvcc` process, all started together, and the objects are linked
+into one library.  The build runs at the first launch, never at import,
+into `cacophony_tpu_torch/_build/` (listed in .gitignore); the library name
+carries a hash of the sources, so an edited source is rebuilt.  A failed
+build raises.
 
-Each kernel has three things here:
+Each kernel has three things:
 - a plain PyTorch version (`*_plain`) with the kernel's numerics, on any
   device: the CPU tests run it, and chip_smoke.py holds the kernel to it;
-- a wrapper (`layer_norm`, `gemm`, `attention`) that runs the plain version
-  for a tensor on the CPU and launches the kernel for a CUDA tensor — it
-  checks device, dtype, shape and contiguity and raises on anything the
-  kernel does not take; it never falls back;
+- a wrapper (`layer_norm`, `gemm`, `attention` here; `log_mel` in
+  frontend/fused.py) that runs the plain version for a tensor on the CPU
+  and launches the kernel for a CUDA tensor — it checks device, dtype,
+  shape and contiguity and raises on anything the kernel does not take; it
+  never falls back;
 - a launch count in `LAUNCHES`, incremented where the kernel is launched
   and nowhere else.
 """
@@ -34,13 +37,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 # dtype and epilogue codes shared with csrc/k1_common.cuh
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD = range(4)
 
-LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0}
+LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "log_mel": 0}
+# launch-count key → C entry point (K1's three kernels; K8's log-mel)
+_SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "k1_attention",
+            "log_mel": "k8_log_mel"}
 
 _VSCALE = 2.0 ** -24
 _SOFTMAX_CLAMP = 80.0
@@ -75,53 +81,80 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
 
 
+def _compile(out: str) -> None:
+    """One nvcc process per .cu file, all started together, then one link."""
+    global build_log
+    nvcc = _nvcc()
+    units = [f for f in _sources() if f.endswith(".cu")]
+    objs = [os.path.join(os.path.dirname(out), f"{os.path.basename(out)}.{u}.o") for u in units]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, u)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for u, o in zip(units, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        failed = [(u, p.returncode) for u, p in zip(units, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", out, *objs], capture_output=True,
+                                  text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed = [("link", link.returncode)]
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.unlink(o)
+    build_log = "".join(logs)
+    if failed:
+        raise KernelBuildError(f"nvcc failed {failed}:\n{build_log}")
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _lib, build_log
+    global _lib
     if _lib is not None:
         return _lib
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in _sources():
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
-    path = os.path.join(BUILD_DIR, f"libk1_{digest.hexdigest()[:16]}.so")
+    path = os.path.join(BUILD_DIR, f"libcaco_{digest.hexdigest()[:16]}.so")
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[os.path.join(CSRC, f) for f in _sources() if f.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            _compile(tmp)
+        except BaseException:
             os.unlink(tmp)
-            raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            raise
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.k1_layer_norm.argtypes = [i, p, p, p, p, i, i, f, p]
     lib.k1_gemm.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
     lib.k1_attention.argtypes = [i, p, p, p, i, i, i, i, f, p]
-    for fn in (lib.k1_layer_norm, lib.k1_gemm, lib.k1_attention):
-        fn.restype = ctypes.c_int
+    lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
+    for sym in _SYMBOLS.values():
+        getattr(lib, sym).restype = ctypes.c_int
     _lib = lib
     return lib
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch `k1_<name>` on `device`'s current stream, count it, and raise
-    if the launch was refused (cudaGetLastError right after it)."""
-    fn = getattr(load_library(), f"k1_{name}")
+    """Launch the kernel counted as `name` on `device`'s current stream,
+    count it, and raise if the launch was refused (cudaGetLastError right
+    after it)."""
+    fn = getattr(load_library(), _SYMBOLS[name])
     with torch.cuda.device(device):
         LAUNCHES[name] += 1
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"K1 kernel {name}: CUDA error {err} at launch")
+        raise RuntimeError(f"kernel {name}: CUDA error {err} at launch")
 
 
 def _need(cond: bool, what: str) -> None:
     if not cond:
-        raise ValueError(f"K1 kernel does not take this input: {what}")
+        raise ValueError(f"kernel does not take this input: {what}")
 
 
 def _device_kind(*ts: torch.Tensor) -> str:
@@ -131,7 +164,7 @@ def _device_kind(*ts: torch.Tensor) -> str:
         return "cpu"
     if kinds == {"cuda"} and len(devices) == 1:
         return "cuda"
-    raise ValueError(f"K1 kernels take all-CPU or all-CUDA tensors on one device, "
+    raise ValueError(f"kernels take all-CPU or all-CUDA tensors on one device, "
                      f"got {sorted(map(str, devices))}")
 
 

@@ -2,8 +2,9 @@
 
 Only the full-sequence self-attention with an additive bias is ported
 (JAX `multi_head_attention`, `:132-133` and `:204-228`): the text tower runs
-it with the causal+padding bias.  The KV-cache decode branch and
-cross-attention come with the decoder slice.
+it with the causal+padding bias, and the audio encoder's "einsum" route
+with a key mask (`flash_mask`) turned into a −1e30 bias (`:209-215`).  The
+KV-cache decode branch and cross-attention come with the decoder slice.
 """
 
 from __future__ import annotations
@@ -26,17 +27,25 @@ class Attention(nn.Module):
         self.o = Dense(d_model, d_model, generator, stddev)
 
 
+FLASH_MASK_BIAS = -1e30  # ops/attention.py:215
+
+
 def multi_head_attention(p: Attention, x: torch.Tensor, *, num_heads: int,
                          bias: Optional[torch.Tensor] = None,
-                         dtype: Optional[torch.dtype] = torch.float32) -> torch.Tensor:
+                         dtype: Optional[torch.dtype] = torch.float32,
+                         flash_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S, D) → (B, S, D).  bias: additive, broadcastable to (B, H, S, S),
-    added to the logits in the compute dtype; softmax runs in fp32."""
+    added to the logits in the compute dtype; softmax runs in fp32.  Without
+    a bias, `flash_mask` (B, S) (>0 = valid key) becomes the bias 0 / −1e30."""
     b, s, d = x.shape
     head_dim = d // num_heads
     qkv = dense(p.qkv, x, dtype)
     q, k, v = (t.reshape(b, s, num_heads, head_dim) for t in qkv.split(d, dim=-1))
-    scale = 1.0 / torch.sqrt(torch.tensor(float(head_dim))).to(q.dtype)
-    q = q * scale.to(q.device)
+    # 1 / sqrt(Dh) computed in q's dtype, then used as a Python number: a
+    # small tensor copied to the card would wait for the device
+    q = q * float(1.0 / torch.tensor(float(head_dim)).sqrt().to(q.dtype))
+    if bias is None and flash_mask is not None:
+        bias = torch.where(flash_mask[:, None, None, :] > 0, 0.0, FLASH_MASK_BIAS)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if bias is not None:
         logits = logits + bias.to(logits.dtype)

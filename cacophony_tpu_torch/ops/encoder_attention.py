@@ -1,10 +1,19 @@
-"""K1: the whole audio-encoder layer, as the JAX package's Pallas kernel computes it.
+"""The audio encoder's fused layer kernels (K1, K2, K3) and the route
+decision that picks among them, as the JAX package computes them.
 
-The JAX package runs every encoder layer at serving width through one
-Pallas kernel, `_fused_block_kernel` with `with_mlp=True`
-(cacophony_tpu/ops/encoder_attention.py:514, reached through
-`try_fused_layer:978` from models/audio.py:161).  Its numerics are not
-those of the XLA reference `_xla_layer`, and the port follows the kernel:
+**Which computation a layer performs.**  The JAX package decides per layer
+(`_vit_block`, cacophony_tpu/models/audio.py:150-185) among its Pallas
+kernels and an XLA einsum path, by a model of the TPU's VMEM
+(`kernel_plan`, `fused_block_fits`, `fused_block_blocked_fits`,
+`fused_ln_fits`, encoder_attention.py:88-134, :577-591, :746-760,
+:1066-1076, gated by the `try_*` functions at :897-1018).  Those choices
+change where values are rounded: K1 adds fp32 biases inside the kernel,
+while the MLP that runs outside K2 and K3 rounds `x @ w` to the compute
+dtype before its bias.  `layer_route` therefore ports the decision itself.
+It states which computation the reference performs at a given shape; it
+is not capacity planning for Hopper, whose kernels have no VMEM budget.
+
+**K1** (`_fused_block_kernel` with with_mlp=True, :514) computes
 
     xn  = T(LN1(x))                        fp32 statistics
     qkv = T(xn @ Wqkv + bqkv)              fp32 accumulation, fp32 bias
@@ -17,31 +26,43 @@ those of the XLA reference `_xla_layer`, and the port follows the kernel:
     out = T(f32(yb) + f32(T(h1 @ W2 + b2)))
 
 with T the compute dtype (bf16 or fp32) and every bias and LayerNorm
-parameter in fp32.
+parameter in fp32.  **K2** (the same kernel with with_mlp=False) stops at
+LN2 and returns (yb, yn).  **K3** (`_fused_block_kernel_blocked`, :674,
+with_mlp=False) is K2 over a row padded to a multiple of the q-block
+(256): the padded keys are masked and the padded query rows sliced away.
+Its blocked softmax keeps the deferred normalisation with the 2^-24 V
+pre-scale (`BLOCKED_DEFER_NORM`), so its numerics are K2's.
 
-On Hopper the layer cannot be one kernel: a 768x3072 weight pair is 9.4 MB
-in bf16 against 227 KB of shared memory per block.  So K1 is a chain of
-hand-written kernels that meet in device memory (ops/_kernels.py,
-csrc/): (a) a row LayerNorm for LN1 and LN2, (b) a tiled GEMM with fused
-epilogues for the four products, (c) a flash-style masked attention.  The
-same chain serves bf16 and fp32; the TPU's VMEM capacity planning
-(`kernel_plan`, `*_fits`) has no counterpart here.
+On Hopper a layer cannot be one kernel: a 768x3072 weight pair is 9.4 MB
+in bf16 against 227 KB of shared memory per block.  So each is a chain of
+hand-written kernels that meet in device memory (ops/_kernels.py, csrc/):
+(a) a row LayerNorm for LN1 and LN2, (b) a tiled GEMM with fused
+epilogues, (c) a flash-style masked attention.  The attention is already
+tiled over queries, which is all that K3's "QKV once per row into scratch,
+then per q-block" becomes here.
 
-`fused_layer` runs the chain's kernels on a CUDA tensor and their plain
-PyTorch versions on a CPU tensor; `fused_layer_plain` runs the plain
-versions on any device (the reference chip_smoke.py holds the kernels to).
+`fused_layer` / `fused_block` run the kernels on a CUDA tensor and their
+plain PyTorch versions on a CPU tensor; the `*_plain` functions run the
+plain versions on any device (the reference chip_smoke.py holds the
+kernels to).
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import Tuple
 
 import torch
 
 from cacophony_tpu_torch.ops import _kernels as kern
 
-# Whole-layer chains launched on the card (12 per audio bucket at caco_base).
-LAYER_LAUNCHES = {"k1_layer": 0}
+# Chains launched on the card: K1 whole layers, K2 and K3 block halves.
+LAYER_LAUNCHES = {"k1_layer": 0, "k2_block": 0, "k3_block": 0}
+
+# The JAX package's constants for its route decision (encoder_attention.py).
+VMEM_BUDGET_BYTES = 15 * 1024 * 1024
+BLOCK_KERNEL_BUDGET = 60 * 1024 * 1024
+FUSED_BLOCKED_Q_BLOCK = 256
 
 _KERNEL_OPS = SimpleNamespace(layer_norm=kern.layer_norm, gemm=kern.gemm,
                               attention=kern.attention)
@@ -49,41 +70,180 @@ _PLAIN_OPS = SimpleNamespace(layer_norm=kern.layer_norm_plain, gemm=kern.gemm_pl
                              attention=kern.attention_plain)
 
 
-def _layer(ops, blk, x, mask, num_heads: int, eps: float):
-    dt = x.dtype
-    f32 = torch.float32
+# ----------------------------------------------------------- route decision
 
-    def w(dense):
-        return dense.w.to(dt).contiguous()
+def _esize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
-    def b(p):
-        return p.to(f32).contiguous()
 
-    attn, mlp = blk.attn, blk.mlp
-    xn = ops.layer_norm(x, b(blk.ln1.scale), b(blk.ln1.bias), eps)
-    qkv = ops.gemm(xn, w(attn.qkv), b(attn.qkv.b), kern.EPI_BIAS)
+def kernel_plan(seq: int, d_model: int, dtype: torch.dtype):
+    """("one_shot", seq, seq), ("blocked", padded_seq, q_block) or None
+    (encoder_attention.py:88)."""
+    e = _esize(dtype)
+
+    def one_shot_fits(s):
+        blocks = s * 3 * d_model * e + s * d_model * e
+        return 2 * blocks + s * s * 4 + s * s * e <= VMEM_BUDGET_BYTES
+
+    def blocked_fits(s_pad, qb):
+        blocks = s_pad * 2 * d_model * e + 2 * qb * d_model * e
+        return 2 * blocks + qb * s_pad * 4 + qb * s_pad * e <= VMEM_BUDGET_BYTES
+
+    if one_shot_fits(seq):
+        return "one_shot", seq, seq
+    for qb in (512, 256, 128):
+        s_pad = -(-seq // qb) * qb
+        if blocked_fits(s_pad, qb):
+            return "blocked", s_pad, qb
+    return None
+
+
+def fused_block_fits(seq: int, d_model: int, dtype: torch.dtype, intermediate: int = 0) -> bool:
+    """encoder_attention.py:577; `intermediate` > 0 adds the in-kernel MLP."""
+    e = _esize(dtype)
+    blocks = (3 * seq * d_model * e + d_model * 3 * d_model * e + d_model * d_model * e
+              + 2 * d_model * intermediate * e)
+    scratch = (seq * 3 * d_model * e + seq * seq * 4 + seq * seq * e + 2 * seq * d_model * 4
+               + seq * intermediate * (4 + e))
+    return 2 * blocks + scratch <= BLOCK_KERNEL_BUDGET
+
+
+def fused_block_blocked_fits(s_pad: int, qb: int, d: int, dtype: torch.dtype,
+                             intermediate: int = 0) -> bool:
+    """encoder_attention.py:749."""
+    e = _esize(dtype)
+    blocks = (s_pad * d + d * 3 * d + d * d + 2 * d * intermediate + 2 * qb * d) * e
+    scratch = (s_pad * 3 * d * e + qb * s_pad * (4 + e) + 2 * qb * d * 4
+               + qb * intermediate * (4 + e))
+    return 2 * blocks + scratch <= BLOCK_KERNEL_BUDGET
+
+
+def fused_ln_fits(seq: int, d_model: int, dtype: torch.dtype) -> bool:
+    """encoder_attention.py:1066."""
+    e = _esize(dtype)
+    blocks = 2 * seq * d_model * e + d_model * 3 * d_model * e
+    scratch = seq * 3 * d_model * e + seq * seq * 4 + seq * seq * e
+    return 2 * blocks + scratch <= VMEM_BUDGET_BYTES
+
+
+def layer_route(seq: int, d_model: int, intermediate: int,
+                dtype: torch.dtype) -> Tuple[str, int]:
+    """→ (route, padded_len): which computation the JAX package performs for
+    an inference encoder layer over (B, seq, d_model) in `dtype`, in the
+    order `_vit_block` tries them (models/audio.py:161-185):
+
+    "k1"      whole layer in one kernel (`try_fused_layer`, one-shot plan)
+    "k2"      block half in one kernel, MLP outside (`try_fused_block_attention`)
+    "k3"      K2 over a row padded to padded_len (blocked plan)
+    "k6"      LN1 + QKV + attention kernel, the rest outside (`try_fused_ln_attention`)
+    "k4"      one-shot attention kernel only (`encoder_attention`)
+    "k5"      q-blocked attention kernel only (`encoder_attention_blocked`)
+    "einsum"  no kernel (`kernel_plan` is None): XLA einsum attention
+
+    padded_len is the length the chosen kernel runs at (seq except for K3
+    and K5).  It states the reference's computation, not Hopper capacity."""
+    plan = kernel_plan(seq, d_model, dtype)
+    if plan is None:
+        return "einsum", seq
+    if plan[0] == "one_shot":
+        if fused_block_fits(seq, d_model, dtype, intermediate):
+            return "k1", seq
+        if fused_block_fits(seq, d_model, dtype):
+            return "k2", seq
+        if fused_ln_fits(seq, d_model, dtype):
+            return "k6", seq
+        return "k4", seq
+    qb = FUSED_BLOCKED_Q_BLOCK
+    s_pad = -(-seq // qb) * qb
+    if fused_block_blocked_fits(s_pad, qb, d_model, dtype):
+        return "k3", s_pad
+    return "k5", plan[1]
+
+
+def preferred_seq_len(seq: int, d_model: int, dtype: torch.dtype) -> int:
+    """The engine's patch budget: rounded up to the blocked plan's padded
+    length, as the JAX engine sizes it (runtime/engine.py:82-89); unchanged
+    for one-shot and no-kernel plans."""
+    plan = kernel_plan(seq, d_model, dtype)
+    return plan[1] if plan is not None and plan[0] == "blocked" else seq
+
+
+# -------------------------------------------------------------- the chains
+
+def _w(dense, dt):
+    return dense.w.to(dt).contiguous()
+
+
+def _b(p):
+    return p.to(torch.float32).contiguous()
+
+
+def _block(ops, blk, x, mask, num_heads: int, eps: float):
+    """LN1 → QKV → attention → o-proj + fp32 residual → LN2: (yb, yn)."""
+    dt, attn = x.dtype, blk.attn
+    xn = ops.layer_norm(x, _b(blk.ln1.scale), _b(blk.ln1.bias), eps)
+    qkv = ops.gemm(xn, _w(attn.qkv, dt), _b(attn.qkv.b), kern.EPI_BIAS)
     att = ops.attention(qkv, mask, num_heads)
-    yb = ops.gemm(att, w(attn.o), b(attn.o.b), kern.EPI_BIAS_RESID_F32, x)
-    yn = ops.layer_norm(yb, b(blk.ln2.scale), b(blk.ln2.bias), eps)
-    h1 = ops.gemm(yn, w(mlp.w1), b(mlp.w1.b), kern.EPI_BIAS_SILU)
-    return ops.gemm(h1, w(mlp.w2), b(mlp.w2.b), kern.EPI_BIAS_CAST_ADD, yb)
+    yb = ops.gemm(att, _w(attn.o, dt), _b(attn.o.b), kern.EPI_BIAS_RESID_F32, x)
+    yn = ops.layer_norm(yb, _b(blk.ln2.scale), _b(blk.ln2.bias), eps)
+    return yb, yn
+
+
+def _layer(ops, blk, x, mask, num_heads: int, eps: float):
+    dt, mlp = x.dtype, blk.mlp
+    yb, yn = _block(ops, blk, x, mask, num_heads, eps)
+    h1 = ops.gemm(yn, _w(mlp.w1, dt), _b(mlp.w1.b), kern.EPI_BIAS_SILU)
+    return ops.gemm(h1, _w(mlp.w2, dt), _b(mlp.w2.b), kern.EPI_BIAS_CAST_ADD, yb)
+
+
+def _ops_for(x: torch.Tensor) -> SimpleNamespace:
+    if x.device.type == "cuda":
+        return _KERNEL_OPS
+    if x.device.type != "cpu":
+        raise ValueError(f"the encoder kernels run on cuda or cpu, got {x.device}")
+    return _PLAIN_OPS
 
 
 def fused_layer(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
                 eps: float) -> torch.Tensor:
-    """Next-layer x = K1(blk, x).  x: (B, S, D) in the compute dtype;
-    mask: (B, S), >0 marks valid keys.  A CUDA tensor runs the CUDA chain
-    or raises; a CPU tensor runs the plain versions."""
-    if x.device.type == "cuda":
+    """K1: next-layer x.  x: (B, S, D) in the compute dtype; mask: (B, S),
+    >0 marks valid keys.  A CUDA tensor runs the CUDA chain or raises; a
+    CPU tensor runs the plain versions."""
+    ops = _ops_for(x)
+    if ops is _KERNEL_OPS:
         LAYER_LAUNCHES["k1_layer"] += 1
-        return _layer(_KERNEL_OPS, blk, x.contiguous(), mask.to(torch.int32).contiguous(),
-                      num_heads, eps)
-    if x.device.type != "cpu":
-        raise ValueError(f"fused_layer runs on cuda or cpu, got {x.device}")
-    return fused_layer_plain(blk, x, mask, num_heads, eps)
+    return _layer(ops, blk, x.contiguous(), mask.to(torch.int32).contiguous(), num_heads, eps)
 
 
 def fused_layer_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
                       eps: float) -> torch.Tensor:
-    """The chain through the plain PyTorch versions, on any device."""
+    """K1 through the plain PyTorch versions, on any device."""
     return _layer(_PLAIN_OPS, blk, x, mask, num_heads, eps)
+
+
+def _padded_block(ops, blk, x, mask, num_heads, eps, blocked: bool):
+    s = x.shape[1]
+    s_pad = -(-s // FUSED_BLOCKED_Q_BLOCK) * FUSED_BLOCKED_Q_BLOCK if blocked else s
+    if s_pad != s:
+        x = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
+        mask = torch.nn.functional.pad(mask, (0, s_pad - s))
+    yb, yn = _block(ops, blk, x.contiguous(), mask.to(torch.int32).contiguous(), num_heads, eps)
+    return yb[:, :s], yn[:, :s]
+
+
+def fused_block(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                *, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (blocked=False) or K3 (blocked=True): (y, LN2 y), each (B, S, D)
+    in x's dtype.  K3 pads the row to a multiple of FUSED_BLOCKED_Q_BLOCK
+    with masked keys and slices the padded query rows away.  A CUDA tensor
+    runs the CUDA chain or raises; a CPU tensor runs the plain versions."""
+    ops = _ops_for(x)
+    if ops is _KERNEL_OPS:
+        LAYER_LAUNCHES["k3_block" if blocked else "k2_block"] += 1
+    return _padded_block(ops, blk, x, mask, num_heads, eps, blocked)
+
+
+def fused_block_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                      *, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 / K3 through the plain PyTorch versions, on any device."""
+    return _padded_block(_PLAIN_OPS, blk, x, mask, num_heads, eps, blocked)

@@ -1,20 +1,29 @@
 """CacoEngine: batched inference entry points on one device
-(cacophony_tpu/runtime/engine.py: embed_audio, embed_texts, score).
+(cacophony_tpu/runtime/engine.py: embed_audio, embed_audio_long,
+audio_patch_batch, embed_texts, score).
 
 - fixed-size batch buckets (pad + mask + slice): every audio bucket is
   `batch_size` clips of `buffer_seconds`, the tail bucket padded with
   zero-length clips whose mask is all zero;
+- the patch budget is the buffer's patch count rounded up as the JAX
+  engine rounds it (`preferred_seq_len`): a 30-s buffer has 1496 patches
+  and runs at 1536 in bf16 at caco_base width, the extra slots masked;
+- a bounded dispatch window: at most DISPATCH_WINDOW buckets in flight,
+  each filled in pinned host memory and copied with non_blocking=True, so
+  filling the next bucket overlaps the device's work on earlier ones;
 - text length bucketing to {16, 32, 64, max_text_len};
 - everything under `torch.inference_mode()`.
 
-On a CUDA device every audio-encoder layer runs the K1 kernel chain; on the
-CPU the plain versions.  Not ported yet: the mesh (data parallelism), the
-fused frontend kernel (K8, off by default in the JAX engine), captioning
-and embed_audio_long.
+Each audio-encoder layer takes the JAX package's route for the compute
+dtype and sequence length (`ops.encoder_attention.layer_route`): K1, K2 or
+K3 on a CUDA device, their plain versions on the CPU, or the einsum layer.
+`fused_frontend=True` runs the log-mel through K8 (frontend/fused.py).
+Not ported yet: the mesh (data parallelism) and captioning.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Iterable, Optional, Sequence
 
@@ -22,6 +31,7 @@ import numpy as np
 import torch
 
 from cacophony_tpu_torch.configs import CacoConfig, FrontendConfig, PatchConfig
+from cacophony_tpu_torch.frontend.fused import fused_batch_wav_to_patches
 from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples, wav_to_patches
 from cacophony_tpu_torch.models.caco import (
     CacoModel,
@@ -29,18 +39,25 @@ from cacophony_tpu_torch.models.caco import (
     get_audio_embedding,
     get_text_embedding,
 )
+from cacophony_tpu_torch.ops.encoder_attention import preferred_seq_len
 
 TEXT_BUCKETS = (16, 32, 64)
+DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
 
 
 class CacoEngine:
     def __init__(self, cfg: CacoConfig, params: CacoModel, *, tokenizer=None,
                  device="cpu", buffer_seconds: float = 10.0, max_text_len: int = 100,
-                 batch_size: int = 32, dtype: Optional[torch.dtype] = None):
+                 batch_size: int = 32, dtype: Optional[torch.dtype] = None,
+                 fused_frontend: bool = False):
         """dtype overrides cfg.dtype as the compute dtype; parameters stay
         fp32.  `params` is moved to `device` in place.  On CUDA the fp32
         products (frontend, fp32 path) must be full fp32, so TF32 is turned
-        off for matmuls and cuDNN in this process."""
+        off for matmuls and cuDNN in this process, and bf16 products outside
+        the kernels sum in fp32 as XLA's do.
+
+        fused_frontend: compute the log-mel with K8 instead of the unfused
+        chain (the same values up to the order of fp32 sums)."""
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
         self.cfg = cfg
@@ -48,60 +65,146 @@ class CacoEngine:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.front = FrontendConfig()
         self.buffer_samples = int(round(buffer_seconds * self.front.sample_rate))
-        # every valid patch of the buffer fits (reference eval_caco.py:321,351)
-        self.patch = PatchConfig(patches_seq_len=num_patches_for_samples(
-            self.buffer_samples, self.front, PatchConfig()))
+        # every valid patch of the buffer fits (reference eval_caco.py:321,351);
+        # the whole pipeline runs at the blocked kernel's padded length, the
+        # extra slots masked (JAX engine.py:75-89)
+        seq = num_patches_for_samples(self.buffer_samples, self.front, PatchConfig())
+        self.patch = PatchConfig(patches_seq_len=preferred_seq_len(
+            seq, cfg.audio.hidden_size, cfg.dtype))
         self.max_text_len = max_text_len
         self.batch_size = batch_size
         self.tokenizer = tokenizer
+        self.fused_frontend = fused_frontend
         self.params = params.to(self.device).eval()
+        self.peak_in_flight = 0  # most audio buckets in flight in the last embed_audio
 
     # ------------------------------------------------------------- helpers
+
+    def _host(self, shape, dtype) -> torch.Tensor:
+        """Uninitialised host tensor, pinned when the device is a card."""
+        return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+
+    def _fill(self, wavs: Sequence[np.ndarray], rows: int):
+        """(rows, buffer) zero-padded clips + (rows,) lengths in host memory."""
+        bufs, lens = self._host((rows, self.buffer_samples), torch.float32), \
+            self._host((rows,), torch.int32)
+        b, n = bufs.numpy(), lens.numpy()
+        n[:] = 0
+        for i, w in enumerate(wavs):
+            k = min(len(w), self.buffer_samples)
+            b[i, :k] = np.asarray(w, np.float32)[:k]
+            b[i, k:] = 0.0
+            n[i] = k
+        b[len(wavs):] = 0.0
+        return bufs, lens
 
     def _bucket_iter(self, wavs: Iterable[np.ndarray]):
         """One bucket (batch_size zero-padded clips + lengths) at a time."""
         it = iter(wavs)
         while True:
-            bufs = np.zeros((self.batch_size, self.buffer_samples), np.float32)
-            lens = np.zeros((self.batch_size,), np.int32)
-            count = 0
-            for w in it:
-                k = min(len(w), self.buffer_samples)
-                bufs[count, :k] = np.asarray(w, np.float32)[:k]
-                lens[count] = k
-                count += 1
-                if count == self.batch_size:
-                    break
-            if count == 0:
+            clips = [w for _, w in zip(range(self.batch_size), it)]
+            if not clips:
                 return
-            yield bufs, lens, count
-            if count < self.batch_size:
+            yield (*self._fill(clips, self.batch_size), len(clips))
+            if len(clips) < self.batch_size:
                 return
 
-    def _audio_bucket(self, bufs: np.ndarray, lens: np.ndarray) -> torch.Tensor:
-        cfg = self.cfg
-        batch = wav_to_patches(torch.from_numpy(bufs).to(self.device),
-                               torch.from_numpy(lens).to(self.device),
-                               self.front, self.patch, dtype=cfg.dtype)
-        emb, _ = get_audio_embedding(self.params, cfg, batch["audio_patches"],
+    def _wav_to_patch_batch(self, bufs: torch.Tensor, lens: torch.Tensor):
+        """Host buffers → device patch dict: K8 or the unfused chain."""
+        bufs = bufs.to(self.device, non_blocking=True)
+        lens = lens.to(self.device, non_blocking=True)
+        if self.fused_frontend:
+            return fused_batch_wav_to_patches(bufs, lens, self.front, self.patch)
+        return wav_to_patches(bufs, lens, self.front, self.patch, dtype=self.cfg.dtype)
+
+    def _audio_bucket(self, bufs: torch.Tensor, lens: torch.Tensor):
+        """Launch one bucket → (host embeddings, event or None).  On a card
+        the copy back is queued behind the bucket without waiting; the
+        event says when it has landed."""
+        batch = self._wav_to_patch_batch(bufs, lens)
+        emb, _ = get_audio_embedding(self.params, self.cfg, batch["audio_patches"],
                                      batch["audio_time_inds"], batch["audio_freq_inds"],
                                      batch["audio_mask"])
-        return emb
+        if self.device.type != "cuda":
+            return emb, None
+        host = self._host(emb.shape, emb.dtype)
+        host.copy_(emb, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+    @staticmethod
+    def _retire(launched) -> np.ndarray:
+        host, done = launched
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
     # -------------------------------------------------------------- public
 
     @torch.inference_mode()
     def embed_audio(self, wavs: Iterable[np.ndarray]) -> np.ndarray:
-        """16 kHz fp32 waveforms → L2-normalized embeddings (n, proj)."""
-        out, total = [], 0
+        """16 kHz fp32 waveforms (a list or any iterable) → L2-normalized
+        embeddings (n, proj).
+
+        Buckets are consumed lazily with at most DISPATCH_WINDOW in flight
+        (JAX engine.py:266-284): the host fills the next bucket while the
+        device works, and waits for a bucket's embeddings only when the
+        window is full.  One stream runs the buckets in order, so waiting on
+        a bucket's own event (not a blocking copy, which would wait for
+        every later bucket too) is what keeps the others in flight."""
+        pending, out, total = collections.deque(), [], 0
+        self.peak_in_flight = 0
         for bufs, lens, count in self._bucket_iter(wavs):
             total += count
-            out.append(self._audio_bucket(bufs, lens).cpu().numpy())
+            if len(pending) == DISPATCH_WINDOW:
+                out.append(self._retire(pending.popleft()))
+            pending.append(self._audio_bucket(bufs, lens))
+            self.peak_in_flight = max(self.peak_in_flight, len(pending))
+        out.extend(self._retire(p) for p in pending)
         if not out:
             return np.zeros((0, self.cfg.projection_size), np.float32)
         return np.concatenate(out)[:total]
+
+    @torch.inference_mode()
+    def audio_patch_batch(self, wavs: Sequence[np.ndarray]):
+        """Device patch dict for the clips padded to a multiple of
+        batch_size, and the clip count (captioning / HEAR paths)."""
+        n = len(wavs)
+        bufs, lens = self._fill(wavs, -(-n // self.batch_size) * self.batch_size)
+        return self._wav_to_patch_batch(bufs, lens), n
+
+    def embed_audio_long(self, wavs: Sequence[np.ndarray], *,
+                         overlap_seconds: float = 0.0) -> np.ndarray:
+        """Clips of any length: cut each into engine-sized windows (hop =
+        buffer − overlap), embed every window, average a clip's normalized
+        embeddings and renormalize (JAX engine.py:326-353).  A clip no
+        longer than the buffer reduces to embed_audio."""
+        hop = self.buffer_samples - int(round(overlap_seconds * self.front.sample_rate))
+        if hop <= 0:
+            raise ValueError(f"overlap {overlap_seconds} s leaves no hop in a "
+                             f"{self.buffer_samples}-sample buffer")
+        wavs = list(wavs)  # owners index into the input; chunk views stream
+        owners = []
+
+        def chunk_iter():
+            for i, w in enumerate(wavs):
+                n = max(1, -(-max(len(w) - self.buffer_samples, 0) // hop) + 1)
+                for c in range(n):
+                    owners.append(i)
+                    yield w[c * hop: c * hop + self.buffer_samples]
+
+        emb = self.embed_audio(chunk_iter())
+        out = np.zeros((len(wavs), emb.shape[1]), np.float32)
+        counts = np.zeros(len(wavs))
+        for e, o in zip(emb, owners):
+            out[o] += e
+            counts[o] += 1
+        out /= counts[:, None]
+        return out / np.linalg.norm(out, axis=-1, keepdims=True)
 
     @torch.inference_mode()
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:

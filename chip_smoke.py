@@ -5,22 +5,34 @@
 
 Phases (any failure exits non-zero and prints no final `ok` line):
 1. print the card's name and power limit (nvidia-smi); build the CUDA
-   kernels from cacophony_tpu_torch/csrc;
+   kernels from cacophony_tpu_torch/csrc (one nvcc per source, in parallel);
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
    plain PyTorch version on the card: B=8, S=496, D=768, H=8, I=3072, some
    padded keys and one all-masked clip, bf16 and fp32;
-3. build caco_base() with random weights from seed 0 and a bf16
-   CacoEngine on cuda with a byte-level tokenizer;
-4. serve requests: embed_audio on 70 clips of 3-10 s (the last bucket is
-   mostly padding), embed_texts on a handful of prompts, score;
-5. check: finite values, unit norms, the K1 chain launched 12 times per
-   audio bucket and each kernel launched in that run; fp32 on the card vs
-   fp32 plain on the CPU (cosine ≥ 0.9999 on 2 clips); bf16 vs fp32 on
-   the card (cosine ≥ 0.999);
-6. time embed_audio at batch 32 and each kernel and the K1 chain against
-   the plain versions, beside the card's name and power limit.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+3. K2 and K3 (`fused_block`, the chain up to LN2) against the plain
+   version: B=8, K2 at S=496 in fp32, K3 at S=1496 padded to 1536 inside
+   in bf16 and fp32, mixed lengths and a clip with no valid patch;
+4. K8 (the fused log-mel) against the plain version: B=8, 1000 and 3000
+   frames, with a quiet and a silent clip;
+5. caco_base() with random weights from seed 0, a bf16 10-s CacoEngine on
+   cuda: embed_audio on 70 clips of 3-10 s (the last bucket is mostly
+   padding), embed_texts, score; K1 launched 12 times per bucket;
+6. the fp32 10-s engine on the same clips: K2 launched 12 times per bucket
+   and K1 none; fp32 card vs fp32 plain on the CPU (cosine >= 0.9999 on 2
+   clips); bf16 vs fp32 on the card (cosine >= 0.999);
+7. a bf16 10-s engine with fused_frontend=True: K8 launched once per
+   bucket; cosine >= 0.9999 against the unfused engine;
+8. the 30-s retrieval engine in bf16: 1536 patches, 40 clips of 3-30 s
+   with K3 launched 12 times per bucket and K1 none, embed_audio_long on
+   clips of 45-75 s; against an fp32 30-s engine (no kernel: the einsum
+   route) at cosine >= 0.999;
+9. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
+   kernel and chain, the K2 and K3 blocks and K8 against their plain
+   versions, beside the card's name and power limit.
+Every main path is driven with the launch counts set to 0 just before it
+and read just after.  The line before the last is a JSON object with one
+entry per TPU kernel (K1, K2, K3, K8); the last line is
+{"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
 """
@@ -37,6 +49,7 @@ import torch
 
 from cacophony_tpu_torch import configs
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
+from cacophony_tpu_torch.frontend import fused
 from cacophony_tpu_torch.models.audio import ViTBlock
 from cacophony_tpu_torch.models.caco import caco_init
 from cacophony_tpu_torch.ops import _kernels as kern
@@ -45,26 +58,70 @@ from cacophony_tpu_torch.runtime import CacoEngine
 
 SEED = 0
 DEVICE = "cuda"
-N_CLIPS = 70
+N_CLIPS = 70      # 10-s paths: 3 buckets, the last mostly zero-length padding
+N_CLIPS_30 = 40   # 30-s path: 2 buckets
 BATCH = 32
-REPLACES = "cacophony_tpu/ops/encoder_attention.py:514"  # _fused_block_kernel, with_mlp=True
-KERNELS = {  # launch-count key → source
-    "layer_norm": "cacophony_tpu_torch/csrc/layer_norm.cu",
-    "gemm": "cacophony_tpu_torch/csrc/gemm.cu",
-    "attention": "cacophony_tpu_torch/csrc/attention.cu",
+D, H, INTER = 768, 8, 3072  # caco_base's audio layer: width, heads, MLP
+CSRC = "cacophony_tpu_torch/csrc/"
+K1_PARTS = {  # launch-count key → source of one kernel of the K1/K2/K3 chain
+    "layer_norm": CSRC + "layer_norm.cu",
+    "gemm": CSRC + "gemm.cu",
+    "attention": CSRC + "attention.cu",
+}
+CHAIN_SOURCES = ", ".join(K1_PARTS.values())
+EA = "cacophony_tpu/ops/encoder_attention.py"
+TPU_KERNELS = {  # name → (sources, the Pallas function it replaces, launch-count key)
+    "K1": (CHAIN_SOURCES, f"{EA}:594", "k1_layer"),  # _pallas_fused_block, with_mlp=True
+    "K2": (CHAIN_SOURCES, f"{EA}:594", "k2_block"),  # _pallas_fused_block, with_mlp=False
+    "K3": (CHAIN_SOURCES, f"{EA}:763", "k3_block"),  # _pallas_fused_block_blocked
+    "K8": (CSRC + "log_mel.cu", "cacophony_tpu/frontend/fused.py:153", "log_mel"),
 }
 # |kernel - plain| ≤ atol + rtol·|plain|, elementwise.  bf16: outputs are
 # rounded to bf16 (8 mantissa bits) after fp32 sums taken in another order,
 # so one rounding step apart is 2^-8 relative; the chain compounds seven
-# such steps.  fp32: summation order only.
+# such steps.  fp32: summation order only.  K8: fp32 sums in another order,
+# and the log scales a mel error δ by 0.2/(mel + 1e-5).
 TOL = {
     torch.bfloat16: {"kernel": (2e-2, 1e-2), "chain": (6e-2, 3e-2)},
     torch.float32: {"kernel": (1e-4, 1e-4), "chain": (5e-4, 5e-4)},
+    "log_mel": (1e-4, 0.0),
 }
+# The fused and the unfused frontend give the same fp32 log-mel up to the
+# order of fp32 sums (~1e-6); after the cast to bf16 a patch value changes
+# only where it lies that close to a rounding boundary, by one bf16 step.
+# Those few flips move the bf16 embedding far less than bf16 itself does
+# against fp32 (bounded at 0.999 in phase 6).
+COS_FUSED = 0.9999
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def reset_launches() -> None:
+    kern.reset_launches()
+    for k in ea.LAYER_LAUNCHES:
+        ea.LAYER_LAUNCHES[k] = 0
+
+
+def launches() -> dict:
+    return dict(kern.LAUNCHES, **ea.LAYER_LAUNCHES)
+
+
+def drive(name, fn, expect):
+    """Run one main path with every launch count at 0 just before it; check
+    the counts read just after against `expect` (key → exact count, or
+    None for "at least once")."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = launches()
+    print(f"  {name}: launches {got}")
+    for k, want in expect.items():
+        ok = got[k] > 0 if want is None else got[k] == want
+        check(ok, f"{name}: {k} launched {got[k]} times, expected "
+                  f"{'at least once' if want is None else want}")
+    return out, got
 
 
 def check(cond: bool, msg: str) -> None:
@@ -144,12 +201,11 @@ def layer_cases(blk, x, mask, heads):
 
 
 @torch.inference_mode()
-def kernel_phase():
+def kernel_phase(blk):
     """Phase 2: every K1 kernel and the chain against the plain versions."""
-    b, s, d, h, inter = 8, 496, 768, 8, 3072
+    b, s, d, h, inter = 8, 496, D, H, INTER
     lengths = [496, 400, 300, 496, 100, 250, 0, 17]  # clip 6: all keys masked
-    gen = torch.Generator().manual_seed(SEED)
-    blk = ViTBlock(d, inter, gen).to(DEVICE)
+    gen = torch.Generator().manual_seed(SEED + 4)
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         atol, rtol = TOL[dt]["kernel"]
@@ -173,10 +229,63 @@ def kernel_phase():
     return errs
 
 
+@torch.inference_mode()
+def block_phase(blk):
+    """Phase 3: K2 and K3 (fused_block) against the plain chain.  At
+    S=1496 K3 pads to 1536 inside: 40 padded keys on top of the short
+    clips, and clip 6 has no valid patch at all."""
+    b, d, h = 8, D, H
+    gen = torch.Generator().manual_seed(SEED + 2)
+    errs = {}
+    for name, dt, s, blocked in (("K2", torch.float32, 496, False),
+                                 ("K3", torch.bfloat16, 1496, True),
+                                 ("K3", torch.float32, 1496, True)):
+        lengths = ([496, 400, 300, 496, 100, 250, 0, 17] if s == 496
+                   else [1496, 1200, 700, 1496, 100, 37, 0, 1000])
+        print(f"phase 3: {name} block vs plain, {str(dt).split('.')[-1]}, B={b} S={s}"
+              f"{' (padded to 1536 inside)' if blocked else ''}")
+        x, mask = layer_inputs(b, s, d, dt, gen, lengths)
+        got = ea.fused_block(blk, x, mask, h, 1e-6, blocked=blocked)
+        ref = ea.fused_block_plain(blk, x, mask, h, 1e-6, blocked=blocked)
+        atol, rtol = TOL[dt]["chain"]
+        err = max(compare(f"{name} {label}", g, r, atol, rtol)
+                  for label, g, r in zip(("y", "LN2 y"), got, ref))
+        check(all(bool(torch.isfinite(t[6]).all()) and t.shape == (b, s, d) for t in got),
+              f"{name}: the clip with no valid patch gave non-finite rows")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+@torch.inference_mode()
+def log_mel_phase():
+    """Phase 4: K8 against its plain version, B=8, 10-s and 30-s buffers."""
+    front = configs.FrontendConfig()
+    gen = torch.Generator().manual_seed(SEED + 3)
+    err = 0.0
+    for seconds in (10, 30):
+        frames = seconds * 100
+        lens = [seconds * 16000, 3 * 16000, 12345, seconds * 16000, 16000, 0, 160, 7 * 16000]
+        bufs = torch.zeros(len(lens), seconds * 16000)
+        for i, n in enumerate(lens):
+            bufs[i, :n] = (1e-4 if i == 3 else 0.1) * torch.randn(n, generator=gen)
+        rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
+        print(f"phase 4: K8 vs plain, B={len(lens)}, {frames} frames")
+        err = max(err, compare(f"K8 log-mel, {frames} frames", fused.fused_log_mel(rows, front, frames),
+                               fused.fused_log_mel_plain(rows, front, frames), *TOL["log_mel"]))
+    return err
+
+
 def cosine_rows(a, b):
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
     return (a * b).sum(-1)
+
+
+def check_embeddings(name, emb, n, cfg):
+    check(emb.shape == (n, cfg.projection_size), f"{name}: shape {emb.shape}")
+    check(bool(np.isfinite(emb).all()), f"{name}: non-finite values")
+    dev = float(np.abs(np.linalg.norm(emb, axis=-1) - 1.0).max())
+    check(dev <= 1e-3, f"{name}: embedding norms off by {dev}")
 
 
 def byte_tokenizer():
@@ -189,9 +298,11 @@ def byte_tokenizer():
 
 @torch.inference_mode()
 def timing_phase(blk, label):
-    """Phase 6b: per-layer K1 chain and each kernel vs plain at B=32, S=496,
-    bf16; a kernel's time is the sum over its calls in one layer."""
-    b, s, d, h = BATCH, 496, 768, 8
+    """Phase 9: per-layer K1 chain and each kernel vs plain at B=32, S=496,
+    bf16 (a kernel's time is the sum over its calls in one layer); the K2
+    block in fp32 at S=496, the K3 block in bf16 at S=1536, and K8 at 1000
+    and 3000 frames, all at B=32."""
+    b, s, d, h = BATCH, 496, D, H
     gen = torch.Generator().manual_seed(SEED + 1)
     lengths = list(np.random.RandomState(SEED).randint(48, 497, size=b))
     x, mask = layer_inputs(b, s, d, torch.bfloat16, gen, lengths)
@@ -202,12 +313,38 @@ def timing_phase(blk, label):
                                lambda: [plain(*a) for _, a in cases], 10)
     times["k1_layer"] = paired_ms(lambda: ea.fused_layer(blk, x, mask, h, 1e-6),
                                   lambda: ea.fused_layer_plain(blk, x, mask, h, 1e-6), 10)
-    what = {"layer_norm": "LN1 + LN2", "gemm": "4 products of one layer",
-            "attention": "attention", "k1_layer": "K1 chain, one layer"}
+    for key, dt, s_blk, blocked in (("k2_block", torch.float32, 496, False),
+                                    ("k3_block", torch.bfloat16, 1536, True)):
+        lens = list(np.random.RandomState(SEED).randint(s_blk // 10, s_blk + 1, size=b))
+        xb, mb = layer_inputs(b, s_blk, d, dt, gen, lens)
+        times[key] = paired_ms(lambda: ea.fused_block(blk, xb, mb, h, 1e-6, blocked=blocked),
+                               lambda: ea.fused_block_plain(blk, xb, mb, h, 1e-6, blocked=blocked),
+                               5)
+    front = configs.FrontendConfig()
+    for frames in (1000, 3000):
+        bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
+        rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
+        times[f"log_mel_{frames}"] = paired_ms(lambda: fused.fused_log_mel(rows, front, frames),
+                                               lambda: fused.fused_log_mel_plain(rows, front, frames),
+                                               10)
+    what = {"layer_norm": "LN1 + LN2 (bf16, S=496)", "gemm": "4 products, one layer (bf16, S=496)",
+            "attention": "attention (bf16, S=496)", "k1_layer": "K1 chain, one layer (bf16, S=496)",
+            "k2_block": "K2 block (fp32, S=496)", "k3_block": "K3 block (bf16, S=1536)",
+            "log_mel_1000": "K8 log-mel (1000 frames)", "log_mel_3000": "K8 log-mel (3000 frames)"}
     for k, (km, pm) in times.items():
-        print(f"  {what[k]:<26} kernel {km:.4f} ms  plain {pm:.4f} ms"
-              f"  (bf16, B={b} S={s}; {label})")
+        print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms  (B={b}; {label})")
     return times
+
+
+def clips_per_s(engine, wavs, runs=2):
+    engine.embed_audio(wavs[:BATCH])  # warm
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.embed_audio(wavs)
+        rates.append(len(wavs) / (time.perf_counter() - t0))
+    return rates
 
 
 def run() -> dict:
@@ -227,16 +364,21 @@ def run() -> dict:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    errs = kernel_phase()
+    blk = ViTBlock(D, INTER, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    errs = kernel_phase(blk)
+    errs.update(block_phase(blk))
+    errs["K8"] = log_mel_phase()
 
     cfg = configs.caco_base()
+    n_layers = cfg.audio.num_layers
     tok = byte_tokenizer()
     t0 = time.perf_counter()
     model = caco_init(cfg, torch.Generator().manual_seed(SEED))
     engine = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
                         dtype=torch.bfloat16)
-    print(f"phase 3: caco_base bf16 engine on cuda in {time.perf_counter() - t0:.1f} s "
+    print(f"phase 5: caco_base bf16 10-s engine on cuda in {time.perf_counter() - t0:.1f} s "
           f"(seq {engine.patch.patches_seq_len})")
+    check(engine.patch.patches_seq_len == 496, "10-s engine is not at 496 patches")
 
     rs = np.random.RandomState(SEED)
     lengths = rs.randint(3 * 16000, 10 * 16000 + 1, size=N_CLIPS)
@@ -244,66 +386,106 @@ def run() -> dict:
     texts = ["a dog barking", "rain on a window", "a trumpet solo",
              "people talking in a crowded room", "an engine idling", "birds singing at dawn"]
     n_buckets = -(-N_CLIPS // BATCH)
+    no_blocks = {"k2_block": 0, "k3_block": 0}
+    chain = dict.fromkeys(K1_PARTS)  # each launched at least once
 
-    kern.reset_launches()
-    ea.LAYER_LAUNCHES["k1_layer"] = 0
-    a_emb = engine.embed_audio(wavs)
-    launches = dict(kern.LAUNCHES, **ea.LAYER_LAUNCHES)
+    path = {}
+    a_emb, path["K1"] = drive("bf16 10-s embed_audio", lambda: engine.embed_audio(wavs),
+                              {"k1_layer": n_layers * n_buckets, **no_blocks, "log_mel": 0, **chain})
     t_emb = engine.embed_texts(texts)
     scores = engine.score(a_emb, t_emb)
-    print(f"phase 4: embed_audio {a_emb.shape}, embed_texts {t_emb.shape}, score {scores.shape}; "
-          f"launches {launches}")
-
-    check(a_emb.shape == (N_CLIPS, cfg.projection_size), f"audio shape {a_emb.shape}")
-    check(t_emb.shape == (len(texts), cfg.projection_size), f"text shape {t_emb.shape}")
-    check(scores.shape == (N_CLIPS, len(texts)), f"score shape {scores.shape}")
-    for name, arr in (("audio", a_emb), ("text", t_emb), ("score", scores)):
-        check(bool(np.isfinite(arr).all()), f"{name}: non-finite values")
-    for name, arr in (("audio", a_emb), ("text", t_emb)):
-        dev = float(np.abs(np.linalg.norm(arr, axis=-1) - 1.0).max())
-        check(dev <= 1e-3, f"{name}: embedding norms off by {dev}")
-    n_layers = cfg.audio.num_layers
-    check(launches["k1_layer"] == n_layers * n_buckets,
-          f"K1 chain launched {launches['k1_layer']} times, expected {n_layers * n_buckets}")
-    for k in KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    print(f"  embed_audio {a_emb.shape}, embed_texts {t_emb.shape}, score {scores.shape}")
+    check_embeddings("audio", a_emb, N_CLIPS, cfg)
+    check_embeddings("text", t_emb, len(texts), cfg)
+    check(scores.shape == (N_CLIPS, len(texts)) and bool(np.isfinite(scores).all()),
+          f"score: shape {scores.shape} or non-finite values")
     check(np.allclose(scores, np.exp(cfg.logit_scale_init) * a_emb @ t_emb.T, rtol=1e-4, atol=1e-4),
           "score is not exp(logit_scale) · A @ Tᵀ")
 
+    print("phase 6: fp32 10-s engine (K2 + MLP outside the kernel)")
     engine32 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
                           dtype=torch.float32)
-    a32 = engine32.embed_audio(wavs)
+    a32, path["K2"] = drive("fp32 10-s embed_audio", lambda: engine32.embed_audio(wavs),
+                            {"k2_block": n_layers * n_buckets, "k1_layer": 0, "k3_block": 0,
+                             **chain})
+    check_embeddings("fp32 audio", a32, N_CLIPS, cfg)
     cos_bf16 = float(cosine_rows(a_emb, a32).min())
     cpu_model = caco_init(cfg, torch.Generator().manual_seed(SEED))
     cpu_engine = CacoEngine(cfg, cpu_model, tokenizer=tok, device="cpu", batch_size=2,
                             dtype=torch.float32)
     a_cpu = cpu_engine.embed_audio(wavs[:2])
     cos_cpu = float(cosine_rows(a32[:2], a_cpu).min())
-    print(f"phase 5: cosine fp32 card vs fp32 CPU plain (2 clips) {cos_cpu:.7f} (≥ 0.9999); "
+    print(f"  cosine fp32 card vs fp32 CPU plain (2 clips) {cos_cpu:.7f} (≥ 0.9999); "
           f"bf16 vs fp32 on the card ({N_CLIPS} clips, min) {cos_bf16:.7f} (≥ 0.999)")
     check(cos_cpu >= 0.9999, "fp32 card path disagrees with the CPU plain path")
     check(cos_bf16 >= 0.999, "bf16 path disagrees with fp32")
     del engine32, cpu_engine, cpu_model
 
-    bench = [(0.1 * rs.randn(10 * 16000)).astype(np.float32) for _ in range(4 * BATCH)]
-    engine.embed_audio(bench[:BATCH])  # warm
-    rates = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.embed_audio(bench)
-        rates.append(len(bench) / (time.perf_counter() - t0))
-    print(f"phase 6: embed_audio {rates[0]:.1f} / {rates[1]:.1f} clips/s (10-s clips, bf16, "
-          f"batch {BATCH}, {len(bench)} clips per run; {label})")
-    times = timing_phase(model.audio.blocks[0], label)
+    print("phase 7: bf16 10-s engine with the fused frontend (K8)")
+    engine_k8 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                           dtype=torch.bfloat16, fused_frontend=True)
+    a_k8, path["K8"] = drive("fused-frontend embed_audio", lambda: engine_k8.embed_audio(wavs),
+                             {"log_mel": n_buckets, "k1_layer": n_layers * n_buckets, **chain})
+    check_embeddings("fused-frontend audio", a_k8, N_CLIPS, cfg)
+    cos_k8 = float(cosine_rows(a_k8, a_emb).min())
+    print(f"  cosine fused vs unfused frontend, bf16 ({N_CLIPS} clips, min) {cos_k8:.7f} "
+          f"(≥ {COS_FUSED})")
+    check(cos_k8 >= COS_FUSED, "fused frontend disagrees with the unfused one")
+    del engine_k8
 
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": REPLACES,
-                "launches": launches[k], "max_abs_err": errs[k],
-                "ms": times[k][0], "plain_ms": times[k][1]} for k, src in KERNELS.items()]
+    print("phase 8: the 30-s retrieval engine, bf16 (K3 + MLP outside the kernel)")
+    engine30 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                          dtype=torch.bfloat16, buffer_seconds=30.0)
+    check(engine30.patch.patches_seq_len == 1536,
+          f"30-s bf16 engine at {engine30.patch.patches_seq_len} patches, expected 1536")
+    lengths30 = rs.randint(3 * 16000, 30 * 16000 + 1, size=N_CLIPS_30)
+    wavs30 = [(0.1 * rs.randn(n)).astype(np.float32) for n in lengths30]
+    n_buckets30 = -(-N_CLIPS_30 // BATCH)
+    a30, path["K3"] = drive("bf16 30-s embed_audio", lambda: engine30.embed_audio(wavs30),
+                            {"k3_block": n_layers * n_buckets30, "k1_layer": 0, "k2_block": 0,
+                             **chain})
+    check_embeddings("30-s audio", a30, N_CLIPS_30, cfg)
+    long_wavs = [(0.1 * rs.randn(s * 16000)).astype(np.float32) for s in (45, 60, 75)]
+    a_long, _ = drive("bf16 30-s embed_audio_long", lambda: engine30.embed_audio_long(long_wavs),
+                      {"k3_block": n_layers, "k1_layer": 0})  # 2 + 2 + 3 windows: one bucket
+    check_embeddings("embed_audio_long", a_long, len(long_wavs), cfg)
+    engine30_32 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                             dtype=torch.float32, buffer_seconds=30.0)
+    check(engine30_32.patch.patches_seq_len == 1496,
+          f"30-s fp32 engine at {engine30_32.patch.patches_seq_len} patches, expected 1496")
+    a30_32, _ = drive("fp32 30-s embed_audio (einsum route, no kernel)",
+                      lambda: engine30_32.embed_audio(wavs30),
+                      {k: 0 for k in launches()})
+    cos30 = float(cosine_rows(a30, a30_32).min())
+    print(f"  cosine bf16 (K3) vs fp32 (einsum) at 30 s ({N_CLIPS_30} clips, min) {cos30:.7f} "
+          f"(≥ 0.999)")
+    check(cos30 >= 0.999, "30-s bf16 path disagrees with fp32")
+    del engine30_32
+
+    print("phase 9: timings")
+    bench = [(0.1 * rs.randn(10 * 16000)).astype(np.float32) for _ in range(4 * BATCH)]
+    rates = clips_per_s(engine, bench)
+    print(f"  embed_audio {rates[0]:.1f} / {rates[1]:.1f} clips/s (10-s clips, bf16, "
+          f"batch {BATCH}, {len(bench)} clips per run; {label})")
+    bench30 = [(0.1 * rs.randn(30 * 16000)).astype(np.float32) for _ in range(3 * BATCH)]
+    rates30 = clips_per_s(engine30, bench30)
+    print(f"  embed_audio {rates30[0]:.1f} / {rates30[1]:.1f} clips/s (30-s clips, bf16, "
+          f"batch {BATCH}, {len(bench30)} clips per run; {label})")
+    times = timing_phase(blk, label)
+    times["k8"] = times["log_mel_1000"]
+
+    err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K8": "K8"}
+    time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K8": "k8"}
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": path[name][key], "max_abs_err": errs[err_key[name]],
+                "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1]}
+               for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
-            "k1_layer": {"launches": launches["k1_layer"], "max_abs_err": errs["k1_layer"],
-                         "ms": times["k1_layer"][0], "plain_ms": times["k1_layer"][1]},
-            "clips_per_s": rates, "gpu": label}
+            "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
+                             "ms": times[k][0], "plain_ms": times[k][1]}
+                         for k, src in K1_PARTS.items()},
+            "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
+            "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30}, "gpu": label}
 
 
 def main() -> int:

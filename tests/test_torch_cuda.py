@@ -1,4 +1,5 @@
-"""K1's CUDA kernels on the card, against their plain PyTorch versions.
+"""The CUDA kernels on the card (K1's chain, K2/K3's block chain, K8's
+log-mel), against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -10,13 +11,17 @@ package, so it runs where JAX is absent:
 Tolerances: fp32 5e-4 absolute (summation order through the layer), bf16
 6e-2 absolute plus 3e-2 relative (bf16 roundings of values computed from
 fp32 sums taken in another order, compounded over the layer's seven
-stages); the same bounds chip_smoke.py states.
+stages); the same bounds chip_smoke.py states.  K8: 1e-4 absolute on the
+log-mel (fp32 sums in another order; the log scales a mel error δ by
+0.2/(mel + 1e-5)).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cacophony_tpu_torch.configs import FrontendConfig
+from cacophony_tpu_torch.frontend import fused
 from cacophony_tpu_torch.models.audio import ViTBlock
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
@@ -52,7 +57,7 @@ def test_launch_counters_count_kernel_launches(cuda):
         assert all(v == 0 for v in kern.LAUNCHES.values())
         ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6)
         torch.cuda.synchronize()
-    assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1}
+    assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1, "log_mel": 0}
     assert ea.LAYER_LAUNCHES["k1_layer"] == 1
 
 
@@ -104,3 +109,47 @@ def test_attention_clamp_and_masking_match_plain(cuda, dtype):
     assert torch.isfinite(got).all() and (got[2] == 0).all()
     atol, rtol = {"float32": (5e-3, 1e-4), "bfloat16": (6e-2, 2e-2)}[dtype]
     np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_fused_block_matches_plain_at_1536(cuda, dtype, blocked):
+    """K2 over S = 1536, and K3 over S = 1496 padded to 1536 inside (40
+    padded keys): mixed lengths, short clips, a clip with no valid patch
+    whose rows stay finite; one K2 / K3 count per call."""
+    td = getattr(torch, dtype)
+    s = 1496 if blocked else 1536
+    blk, x, mask = _layer(768, 3072, 4, s, [s, 700, 37, 0], td, 3)
+    for k in ea.LAYER_LAUNCHES:
+        ea.LAYER_LAUNCHES[k] = 0
+    with torch.inference_mode():
+        plain = ea.fused_block_plain(blk, x, mask, 8, 1e-6, blocked=blocked)
+        got = ea.fused_block(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6, blocked=blocked)
+        torch.cuda.synchronize()
+    assert ea.LAYER_LAUNCHES == {"k1_layer": 0, "k2_block": int(not blocked),
+                                 "k3_block": int(blocked)}
+    atol, rtol = TOL[dtype]
+    for g, p in zip(got, plain):
+        g = g.cpu()
+        assert g.shape == (4, s, 768) and torch.isfinite(g).all()
+        np.testing.assert_allclose(g.float().numpy(), p.float().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [10, 30])
+def test_log_mel_kernel_matches_plain(cuda, seconds):
+    """1000 and 3000 frames: noise, a quiet clip (1e-4), a silent clip."""
+    front = FrontendConfig()
+    frames = seconds * 100
+    gen = torch.Generator().manual_seed(4)
+    bufs = 0.1 * torch.randn(3, seconds * 16_000, generator=gen)
+    bufs[1] *= 1e-3
+    bufs[2] = 0.0
+    rows = fused.buffer_to_rows(bufs, frames, front)
+    plain = fused.fused_log_mel_plain(rows, front, frames)
+    kern.reset_launches()
+    got = fused.fused_log_mel(rows.to(cuda), front, frames).cpu()
+    assert kern.LAUNCHES["log_mel"] == 1
+    assert got.shape == (3, frames, 128) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-4)
