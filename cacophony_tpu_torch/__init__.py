@@ -11,7 +11,9 @@ length and dtype (K1, K2 or K3 kernel chains, or the einsum layer;
 ops/encoder_attention.py) → pooled audio embedding; the causal text tower
 and its pooler → text embedding; and the contrastive score, served by
 `CacoEngine` (embed_audio at 10-s and 30-s buffers, embed_audio_long,
-audio_patch_batch, embed_texts, score).
+audio_patch_batch, embed_texts, score).  The stage-2 training step
+(`train/train.py`), with the caption decoder and the training frontend;
+its audio attention runs the K4 / K5 kernels and K4's backward K7.
 """
 
 __version__ = "0.1.0"

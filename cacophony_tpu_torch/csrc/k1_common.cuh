@@ -36,6 +36,15 @@ enum Epilogue {
   EPI_BIAS_CAST_ADD = 3
 };
 
+// The Pallas attention's softmax constants (encoder_attention.py:53, :75,
+// :194), shared by the forward (attention.cu) and the backward
+// (attention_bwd.cu).
+constexpr float SOFTMAX_CLAMP = 80.0f;
+constexpr float NEG_INF = -1e30f;
+constexpr float VSCALE = 5.9604644775390625e-08f;  // 2^-24
+constexpr float INV_VSCALE = 16777216.0f;          // 2^24
+constexpr float ROWSUM_FLOOR = 1e-37f;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
@@ -111,6 +120,45 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// mma.sync operand fragments from a row-major bf16 tile in shared memory
+// (leading dimension ld, in elements), for m16n8k16:
+//  - frag_a: the A fragment of rows m0..m0+15, columns k0..k0+15;
+//  - frag_b_nk: B fragments when the tile's rows are B's n index and its
+//    columns the k index (K for Q·Kᵀ): b[0..1] cover n0..n0+7, b[2..3]
+//    n0+8..n0+15, both at k0..k0+15;
+//  - frag_b_kn: the same when the rows are k and the columns n (V for P·V).
+__device__ __forceinline__ void frag_a(unsigned (&a)[4], const bf16* t, int ld, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, t + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void frag_b_nk(unsigned (&b)[4], const bf16* t, int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, t + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void frag_b_kn(unsigned (&b)[4], const bf16* t, int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+
+// Accumulators of a 16 x (8·N) tile → A fragments of the 16 x (8·N) bf16
+// operand of the next product (k = the accumulators' columns): the
+// accumulator of n-tile n holds rows g, g+8 at columns 8n + 2t, 2t+1.
+template <int N>
+__device__ __forceinline__ void acc_to_a(unsigned (&a)[N / 2][4], const float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    a[n >> 1][(n & 1) * 2] = pack_bf16x2(acc[n][0], acc[n][1]);
+    a[n >> 1][(n & 1) * 2 + 1] = pack_bf16x2(acc[n][2], acc[n][3]);
+  }
+}
+
+// 16-byte copy of eight bf16 values from global memory, zeros when !pred.
+__device__ __forceinline__ uint4 load8(const bf16* p, bool pred) {
+  return pred ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
 }  // namespace k1

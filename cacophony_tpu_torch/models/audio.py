@@ -1,4 +1,4 @@
-"""Audio ViT-MAE encoder (cacophony_tpu/models/audio.py, inference path).
+"""Audio ViT-MAE encoder (cacophony_tpu/models/audio.py).
 
 Dense patch projection, sin-cos TIME embedding from explicit time indices,
 learned frequency embedding gathered by freq indices, N pre-LN ViT layers,
@@ -12,12 +12,20 @@ the widths and the compute dtype:
   outside the kernel with XLA's numerics: dense rounds `x @ w` to the
   compute dtype before adding the bias cast to it, silu runs in the
   compute dtype, and the residual is added in it;
-- "einsum": no kernel — LayerNorm, the einsum attention with the −1e30 key
-  bias (`ops.attention.multi_head_attention`), the residual, LN2, the MLP.
+- "einsum", "k4", "k5": the unfused block `vit_block` — LayerNorm, then
+  `ops.attention.multi_head_attention`, which itself takes K4 (one-shot
+  plan), K5 (blocked plan) or the einsum attention with the −1e30 key bias
+  (no plan), the residual, LN2, the MLP.
+
+In training (`train=True`) every layer is `vit_block`, as in JAX, where the
+fused routes are off in training (`FUSED_IN_TRAIN = False`, audio.py:55):
+attention through K4 / K5 (whose backwards are K7 or autograd of the plain
+math) while attention dropout is 0, dropout and drop-path from a
+`torch.Generator`, and the `act_dense` MLP tail.
 
 The JAX package computes the MLP and the einsum attention in XLA outside
-any Pallas kernel, so they stay PyTorch products here.  The MAE decoder and
-the training path (dropout, drop-path) come with their own slices.
+any Pallas kernel, so they stay PyTorch products here.  The MAE decoder
+comes with its own slice.
 """
 
 from __future__ import annotations
@@ -31,9 +39,13 @@ from cacophony_tpu_torch.configs import AudioEncoderConfig
 from cacophony_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    act_dense,
     dense,
+    drop_path,
+    dropout,
     layer_norm,
     normal_init,
+    silu,
     sincos_time_embedding,
 )
 from cacophony_tpu_torch.ops import encoder_attention as ea
@@ -77,19 +89,33 @@ class AudioEncoder(nn.Module):
 
 def _mlp(p: MLP, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Dense → silu → Dense outside the kernels (JAX `_vit_block`:170-172,
-    :190-194).  silu is h · sigmoid(h) in the compute dtype, as
-    jax.nn.silu writes it; where XLA rounds inside it in bf16 is the
-    backend's choice, so bf16 agrees with JAX to a tolerance, not bit for bit."""
-    h = dense(p.w1, h, dtype)
-    return dense(p.w2, h * torch.sigmoid(h), dtype)
+    :190-194), the second Dense with `act_dense`'s recomputing backward.
+    silu is h · sigmoid(h) in the compute dtype, as jax.nn.silu writes it;
+    where XLA rounds inside it in bf16 is the backend's choice, so bf16
+    agrees with JAX to a tolerance, not bit for bit."""
+    return act_dense(p.w2, dense(p.w1, h, dtype), silu, dtype)
 
 
-def _einsum_layer(blk: ViTBlock, x, mask, num_heads: int, dtype):
-    """The no-kernel layer (JAX `_vit_block`:180-203 with flash_mask set)."""
+def vit_block(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+              dtype: torch.dtype, *, train: bool = False, dropout_rate: float = 0.0,
+              drop_path_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The unfused pre-LN block, x + DropPath(MHA(LN(x))), x + DropPath(MLP(LN(x)))
+    (JAX `_vit_block`:180-203 with flash_mask set; reference mae.py:72-98)."""
+    det = not train
     h = layer_norm(blk.ln1, x, LN_EPS)
-    x = x + multi_head_attention(blk.attn, h, num_heads=num_heads, dtype=dtype,
-                                 flash_mask=mask)
-    return x + _mlp(blk.mlp, layer_norm(blk.ln2, x, LN_EPS), dtype)
+    h = multi_head_attention(blk.attn, h, num_heads=num_heads, dtype=dtype, flash_mask=mask,
+                             dropout_rate=0.0 if det else dropout_rate, generator=generator)
+    h = dropout(generator, h, dropout_rate, det)
+    x = x + drop_path(generator, h, drop_path_rate, det)
+    h = layer_norm(blk.ln2, x, LN_EPS)
+    if det or dropout_rate == 0.0:
+        h = _mlp(blk.mlp, h, dtype)
+    else:
+        h = dropout(generator, silu(dense(blk.mlp.w1, h, dtype)), dropout_rate, det)
+        h = dense(blk.mlp.w2, h, dtype)
+    h = dropout(generator, h, dropout_rate, det)
+    return x + drop_path(generator, h, drop_path_rate, det)
 
 
 def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
@@ -100,12 +126,12 @@ def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads:
     if route in ("k2", "k3"):
         y, ln2y = ea.fused_block(blk, x, mask, num_heads, LN_EPS, blocked=route == "k3")
         return y + _mlp(blk.mlp, ln2y, dtype)
-    if route == "einsum":
-        return _einsum_layer(blk, x, mask, num_heads, dtype)
-    # "k4", "k5", "k6": no serving buffer reaches them at caco_base or caco_tiny widths
+    if route in ("einsum", "k4", "k5"):
+        return vit_block(blk, x, mask, num_heads, dtype)
+    # "k6": no configuration reaches it at caco_base or caco_tiny widths
     raise NotImplementedError(
-        f"encoder layer route {route!r} (the JAX package's {route.upper()} kernel) is not "
-        f"ported yet: ROADMAP queue A item 2, the training slice (K4, K5, K6, K7)")
+        f"encoder layer route {route!r} (the JAX package's K6 kernel) is not ported yet: "
+        f"ROADMAP queue A, the next kernel slice")
 
 
 def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
@@ -113,12 +139,21 @@ def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
                         time_inds: torch.Tensor,  # (B, S) int
                         freq_inds: torch.Tensor,  # (B, S) int
                         mask: torch.Tensor,       # (B, S) 1 = valid
-                        *, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """→ hidden states (B, S, hidden) in `dtype`.  Reference: mae.py:111-139."""
+                        *, dtype: torch.dtype = torch.float32, train: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """→ hidden states (B, S, hidden) in `dtype`.  Reference: mae.py:111-139.
+    Inference takes `layer_route`'s route per layer; training (`train=True`,
+    dropout masks from `generator`) runs `vit_block` on every layer."""
     x = dense(p.patch_proj, patches.to(dtype), dtype)
     x = x + sincos_time_embedding(time_inds, cfg.hidden_size).to(x.dtype)
     x = x + p.freq_pos_embed.to(x.dtype)[freq_inds.long()]
-    route, _ = ea.layer_route(x.shape[1], cfg.hidden_size, cfg.intermediate_size, dtype)
+    route = None if train else ea.layer_route(x.shape[1], cfg.hidden_size,
+                                              cfg.intermediate_size, dtype)[0]
     for blk in p.blocks:
-        x = encoder_layer(blk, x, mask, cfg.num_heads, route, dtype)
+        if train:
+            x = vit_block(blk, x, mask, cfg.num_heads, dtype, train=True,
+                          dropout_rate=cfg.dropout_rate, drop_path_rate=cfg.drop_path_rate,
+                          generator=generator)
+        else:
+            x = encoder_layer(blk, x, mask, cfg.num_heads, route, dtype)
     return layer_norm(p.ln_f, x, LN_EPS)

@@ -1,5 +1,5 @@
-"""CACO top-level model: the joint audio-text embedding space
-(cacophony_tpu/models/caco.py, embedding and scoring path).
+"""CACO top-level model: the joint audio-text embedding space and the
+caption decoder's parameters (cacophony_tpu/models/caco.py).
 
 - `logit_scale`, `text_proj` and a multi-head single-query audio attention
   pooler (reference caco.py:19-69);
@@ -8,8 +8,9 @@
 - normalization is bug-compatible with the reference: x / ||x + eps||;
 - scoring rule exp(logit_scale) · A @ Tᵀ.
 
-Captioning (`decode`) comes with the decoder slice; a JAX parameter tree's
-`decoder` subtree is accepted by the bridge and left unused until then.
+With `train=True` the embeddings run the towers' training paths (dropout
+from a `torch.Generator`; the stage-2 step in train/train.py).  Decoding
+(`decode`) comes with the decode slice.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch import nn
 from cacophony_tpu_torch.configs import CacoConfig
 from cacophony_tpu_torch.models.audio import AudioEncoder, audio_encoder_apply
 from cacophony_tpu_torch.models.layers import Dense, dense, normal_init
-from cacophony_tpu_torch.models.text import TextEncoder, text_encoder_apply
+from cacophony_tpu_torch.models.text import CaptionDecoder, TextEncoder, text_encoder_apply
 
 NORM_EPS = 1e-10  # reference caco.py:9
 
@@ -37,7 +38,7 @@ class AudioPooler(nn.Module):
 
 
 class CacoModel(nn.Module):
-    """Parameters of the embedding model; names mirror the JAX tree."""
+    """Parameters of the model; names mirror the JAX tree."""
 
     def __init__(self, cfg: CacoConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -46,6 +47,8 @@ class CacoModel(nn.Module):
         self.audio_pool = AudioPooler(cfg, generator)
         self.text_proj = Dense(cfg.text.hidden_size, cfg.projection_size, generator)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init, dtype=torch.float32))
+        if cfg.use_decoder:
+            self.decoder = CaptionDecoder(cfg.decoder, generator)
 
 
 def caco_init(cfg: CacoConfig, generator: torch.Generator) -> CacoModel:
@@ -82,21 +85,25 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 def get_audio_embedding(p: CacoModel, cfg: CacoConfig, audio_patches, audio_time_inds,
-                        audio_freq_inds, audio_mask, *, normalize: bool = True
+                        audio_freq_inds, audio_mask, *, normalize: bool = True,
+                        train: bool = False, generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (embedding (B, proj), hidden (B, S, D)).  Reference caco.py:72-96."""
     hidden = audio_encoder_apply(p.audio, cfg.audio, audio_patches, audio_time_inds,
-                                 audio_freq_inds, audio_mask, dtype=cfg.dtype)
+                                 audio_freq_inds, audio_mask, dtype=cfg.dtype, train=train,
+                                 generator=generator)
     emb = audio_pooler_apply(p.audio_pool, cfg, hidden, audio_mask)
     return (_normalize(emb) if normalize else emb), hidden
 
 
 def get_text_embedding(p: CacoModel, cfg: CacoConfig, text_input_ids, text_mask, *,
-                       normalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                       normalize: bool = True, train: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (embedding (B, proj), hidden (B, S, D)).  Reference caco.py:99-123.
     text_proj runs without a dtype, so a bf16 pooled vector promotes to fp32."""
     pooled, hidden = text_encoder_apply(p.text, cfg.text, text_input_ids, text_mask,
-                                        dtype=cfg.dtype)
+                                        dtype=cfg.dtype, train=train, generator=generator)
     emb = dense(p.text_proj, pooled)
     return (_normalize(emb) if normalize else emb), hidden
 

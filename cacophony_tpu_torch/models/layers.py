@@ -9,6 +9,12 @@ math lives in plain functions (`dense`, `layer_norm`, ...) that mirror
 
 Initializers take an explicit `torch.Generator`; with `generator=None` a
 module is built with zeros (the target of the bridge).
+
+Training pieces (JAX layers.py:70-224): `layer_norm` and `act_dense` carry
+the JAX package's custom backwards (`CUSTOM_VJP = True`, its default) as
+`torch.autograd.Function`s, and `dropout` / `drop_path` draw their masks
+from an explicit `torch.Generator` (`DROPOUT_RECOMPUTE = False`, its
+default: the masks are kept for the backward by autograd).
 """
 
 from __future__ import annotations
@@ -20,7 +26,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cacophony_tpu_torch.ops._kernels import layer_norm_plain
 
 NEG_INF = -1e10  # mask bias value (reference roberta_text_model.py:200)
 
@@ -66,10 +71,96 @@ def dense(p: Dense, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> tor
     return x.to(dtype) @ w.to(dtype) + b.to(dtype)
 
 
+class _LayerNorm(torch.autograd.Function):
+    """JAX `_ln` (layers.py:96-130): the forward of `layer_norm_plain`; the
+    backward recomputes x̂ in fp32 from the saved x, mean and rsqrt."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        r = torch.rsqrt((x32 - mean).square().mean(dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, mean, r)
+        return ((x32 - mean) * r * scale + bias).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mean, r = ctx.saved_tensors
+        g32 = g.float()
+        xhat = (x.float() - mean) * r
+        lead = tuple(range(g32.dim() - 1))
+        dscale, dbias = (g32 * xhat).sum(dim=lead), g32.sum(dim=lead)
+        dy = g32 * scale
+        dx = r * (dy - dy.mean(dim=-1, keepdim=True)
+                  - xhat * (dy * xhat).mean(dim=-1, keepdim=True))
+        return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype), None
+
+
 def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm with fp32 statistics; the output keeps x's dtype (the same
-    math as K1's row LayerNorm, whose plain version this is)."""
-    return layer_norm_plain(x, p.scale, p.bias, eps)
+    math as K1's row LayerNorm, `layer_norm_plain`), with the JAX package's
+    recomputing backward."""
+    return _LayerNorm.apply(x, p.scale, p.bias, eps)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x · sigmoid(x) in x's dtype, as jax.nn.silu writes it."""
+    return x * torch.sigmoid(x)
+
+
+class _ActDense(torch.autograd.Function):
+    """JAX `_act_dense` (layers.py:147-182): dense(p, act(h)) whose backward
+    recomputes act and its VJP from h; dw and db are computed in the compute
+    dtype and then cast to the parameters' dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, act, dtype):
+        dt = dtype if dtype is not None else torch.promote_types(h.dtype, w.dtype)
+        ctx.save_for_backward(h, w)
+        ctx.act, ctx.dt, ctx.b_dtype = act, dt, b.dtype
+        return act(h).to(dt) @ w.to(dt) + b.to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dt = ctx.dt
+        with torch.enable_grad():
+            hh = h.detach().requires_grad_()
+            a = ctx.act(hh)
+        a2 = a.detach().reshape(-1, a.shape[-1]).to(dt)
+        g2 = g.reshape(-1, g.shape[-1]).to(dt)
+        dw = (a2.T @ g2).to(w.dtype)
+        db = g2.sum(dim=0).to(ctx.b_dtype)
+        da = (g.to(dt) @ w.to(dt).T).to(a.dtype)
+        (dh,) = torch.autograd.grad(a, hh, da)
+        return dh, dw, db, None, None
+
+
+def act_dense(p: Dense, h: torch.Tensor, act, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`dense(p, act(h), dtype)` whose backward keeps only h (JAX `act_dense`)."""
+    return _ActDense.apply(h, p.w, p.b, act, dtype)
+
+
+def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (JAX layers.py:190-207): keep each value with
+    probability 1 − rate, scaled by 1/(1 − rate).  The mask is drawn from
+    `generator`, which lives on x's device."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def drop_path(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
+              deterministic: bool) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch of a sample with
+    probability `rate` (JAX layers.py:210-224, reference mae.py:35-53)."""
+    if deterministic or rate == 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,23 @@
-"""Causal RoBERTa-style text encoder and its attention pooler
-(cacophony_tpu/models/text.py, full-sequence inference path).
+"""Causal RoBERTa-style text encoder, its attention pooler, and the caption
+decoder (cacophony_tpu/models/text.py, full-sequence mode).
 
-- embeddings = word + absolute position (arange) + token-type row 0,
-  LayerNorm (eps 1e-5), cast to the compute dtype (reference :92-129);
-- post-LN blocks: self-attention → LN(h + x) → gelu-exact MLP → LN(h + x)
-  (reference :295-428), causal by default (reference :385);
-- single learned-query attention pooler (reference :510-536).
+- embeddings = word + absolute position (arange; past the table's last row
+  the position clamps to it, as JAX's gather does) + token-type row 0,
+  LayerNorm (eps 1e-5), dropout, cast to the compute dtype (reference
+  :92-129);
+- post-LN blocks: self-attention → LN(dropout(h) + x) → [cross-attention
+  → LN(dropout(h) + x)] → gelu-exact MLP → LN(dropout(h) + x) (reference
+  :295-428), causal by default (reference :385);
+- single learned-query attention pooler (reference :510-536);
+- the caption decoder: text-encoder hidden states through cross-attention
+  blocks over the audio hidden states, then the vocab projection (:606-627).
 
-The text tower runs no kernel: the JAX package keeps its text attention on
-the einsum path with an additive causal bias (`TEXT_ATTN_KERNEL = False`,
-text.py:90, :417-418), and so does the port.  The KV cache and the caption
-decoder come with the decoder slice.
+The text towers run no kernel: the JAX package keeps their attention on the
+einsum path with an additive causal bias (`TEXT_ATTN_KERNEL = False`,
+text.py:90, :417-418), and so does the port.  With `train=True` the
+attention probabilities and the hidden states go through dropout drawn
+from a `torch.Generator`.  The KV cache and decode come with the decode
+slice.
 """
 
 from __future__ import annotations
@@ -24,13 +31,15 @@ from cacophony_tpu_torch.configs import TextConfig
 from cacophony_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    act_dense,
     dense,
+    dropout,
     gelu_exact,
     layer_norm,
     mask_to_bias,
     normal_init,
 )
-from cacophony_tpu_torch.ops.attention import Attention, multi_head_attention
+from cacophony_tpu_torch.ops.attention import Attention, CrossAttention, multi_head_attention
 
 _STD = 0.02
 
@@ -44,6 +53,9 @@ class TextBlock(nn.Module):
         self.mlp_in = Dense(d, cfg.intermediate_size, generator, _STD)
         self.mlp_out = Dense(cfg.intermediate_size, d, generator, _STD)
         self.ln_mlp = LayerNorm(d)
+        if cfg.cross_attention:
+            self.cross = CrossAttention(d, generator, _STD)
+            self.ln_cross = LayerNorm(d)
 
 
 class TextEmbeddings(nn.Module):
@@ -73,14 +85,42 @@ class TextEncoder(nn.Module):
         self.pooler = TextPooler(cfg, generator)
 
 
-def _text_block(p: TextBlock, x, cfg: TextConfig, bias, dtype):
-    """Post-LN block in full-sequence mode (reference :295-428)."""
+class CaptionDecoder(nn.Module):
+    """Cross-attention text blocks and the vocab projection (JAX
+    `caption_decoder_init`, text.py:141-147)."""
+
+    def __init__(self, cfg: TextConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not cfg.cross_attention:
+            raise ValueError("the caption decoder needs cross_attention=True")
+        self.blocks = nn.ModuleList(TextBlock(cfg, generator) for _ in range(cfg.num_layers))
+        self.vocab_proj = Dense(cfg.hidden_size, cfg.vocab_size, generator, 0.01)
+
+
+def _post_ln_residual(ln: LayerNorm, h, residual, eps: float, generator, rate: float,
+                      det: bool):
+    """RoBERTa post-LN wrapper: LN(dropout(h) + residual) (reference
+    :295-312, :363-380)."""
+    return layer_norm(ln, dropout(generator, h, rate, det) + residual, eps)
+
+
+def _text_block(p: TextBlock, x, cfg: TextConfig, bias, dtype, *, memory=None,
+                memory_bias=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+    """Post-LN block in full-sequence mode (JAX `_text_block`, text.py:179-250)."""
+    det = not train
     eps = cfg.layer_norm_eps
-    h = multi_head_attention(p.attn, x, num_heads=cfg.num_heads, bias=bias, dtype=dtype)
-    x = layer_norm(p.ln_attn, h + x, eps)
-    h = dense(p.mlp_in, x, dtype)
-    h = dense(p.mlp_out, gelu_exact(h), dtype)
-    return layer_norm(p.ln_mlp, h + x, eps)
+    attn_rate = 0.0 if det else cfg.attention_dropout
+    h = multi_head_attention(p.attn, x, num_heads=cfg.num_heads, bias=bias, dtype=dtype,
+                             dropout_rate=attn_rate, generator=generator)
+    x = _post_ln_residual(p.ln_attn, h, x, eps, generator, cfg.hidden_dropout, det)
+    if memory is not None:
+        h = multi_head_attention(p.cross, x, num_heads=cfg.num_heads, bias=memory_bias,
+                                 memory=memory, dtype=dtype, dropout_rate=attn_rate,
+                                 generator=generator)
+        x = _post_ln_residual(p.ln_cross, h, x, eps, generator, cfg.hidden_dropout, det)
+    h = act_dense(p.mlp_out, dense(p.mlp_in, x, dtype), gelu_exact, dtype)
+    return _post_ln_residual(p.ln_mlp, h, x, eps, generator, cfg.hidden_dropout, det)
 
 
 def _causal_bias(text_mask: torch.Tensor) -> torch.Tensor:
@@ -107,22 +147,45 @@ def text_pooler_apply(p: TextPooler, hidden: torch.Tensor, mask: Optional[torch.
 
 def text_encoder_apply(p: TextEncoder, cfg: TextConfig, input_ids: torch.Tensor,
                        attention_mask: torch.Tensor, *, pool: bool = True,
-                       dtype: torch.dtype = torch.float32
+                       dtype: torch.dtype = torch.float32, train: bool = False,
+                       generator: Optional[torch.Generator] = None
                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """→ (pooled (B, D) or None, hidden (B, S, D)); causal unless
-    cfg.causal is False (then padding-only masking)."""
+    cfg.causal is False (then padding-only masking).  A sequence longer
+    than the position table reuses its last row for the positions past it,
+    as JAX's clamping gather does (text.py:380-393)."""
     ids = input_ids.long()
     emb = p.embeddings
-    s = ids.shape[-1]
-    if s > emb.position.shape[0]:
-        raise ValueError(f"sequence {s} exceeds {emb.position.shape[0]} positions")
-    x = emb.word[ids] + emb.position[:s] + emb.token_type[0]
-    x = layer_norm(emb.ln, x, cfg.layer_norm_eps).to(dtype)
+    s, rows = ids.shape[-1], emb.position.shape[0]
+    if s <= rows:
+        pos = emb.position[:s]
+    else:
+        pos = emb.position[torch.arange(s, device=ids.device).clamp(max=rows - 1)]
+    x = emb.word[ids] + pos + emb.token_type[0]
+    x = layer_norm(emb.ln, x, cfg.layer_norm_eps)
+    x = dropout(generator, x, cfg.hidden_dropout, not train).to(dtype)
     if cfg.causal:
         bias = _causal_bias(attention_mask)
     else:
         bias = mask_to_bias(attention_mask)[:, None, None, :]
     for blk in p.blocks:
-        x = _text_block(blk, x, cfg, bias, dtype)
+        x = _text_block(blk, x, cfg, bias, dtype, train=train, generator=generator)
     pooled = text_pooler_apply(p.pooler, x, attention_mask, dtype=dtype) if pool else None
     return pooled, x
+
+
+def caption_decoder_apply(p: CaptionDecoder, cfg: TextConfig, text_hidden: torch.Tensor,
+                          attention_mask: torch.Tensor, audio_hidden: torch.Tensor,
+                          audio_mask: torch.Tensor, *, train: bool = False,
+                          generator: Optional[torch.Generator] = None,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """→ vocab logits (B, S, V): teacher-forced full mode of JAX
+    `caption_decoder_apply` (text.py:460-492): causal self-attention over the
+    text hidden states, cross-attention to the audio hidden states."""
+    bias = _causal_bias(attention_mask)
+    memory_bias = mask_to_bias(audio_mask)[:, None, None, :]
+    x = text_hidden
+    for blk in p.blocks:
+        x = _text_block(blk, x, cfg, bias, dtype, memory=audio_hidden, memory_bias=memory_bias,
+                        train=train, generator=generator)
+    return dense(p.vocab_proj, x, dtype)

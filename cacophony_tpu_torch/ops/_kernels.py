@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels, the build, and K1's plain PyTorch versions.
+"""Hand-written CUDA kernels, the build, and their plain PyTorch versions.
 
 The sources live in `cacophony_tpu_torch/csrc/` and are compiled by `nvcc`
 into one shared library with a plain C interface, loaded with ctypes (no
@@ -12,8 +12,9 @@ build raises.
 Each kernel has three things:
 - a plain PyTorch version (`*_plain`) with the kernel's numerics, on any
   device: the CPU tests run it, and chip_smoke.py holds the kernel to it;
-- a wrapper (`layer_norm`, `gemm`, `attention` here; `log_mel` in
-  frontend/fused.py) that runs the plain version for a tensor on the CPU
+- a wrapper (`layer_norm`, `gemm`, `attention`, `attention_k4`,
+  `attention_k5`, `attention_bwd` here; `log_mel` in frontend/fused.py)
+  that runs the plain version for a tensor on the CPU
   and launches the kernel for a CUDA tensor — it checks device, dtype,
   shape and contiguity and raises on anything the kernel does not take; it
   never falls back;
@@ -43,9 +44,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD = range(4)
 
-LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "log_mel": 0}
-# launch-count key → C entry point (K1's three kernels; K8's log-mel)
-_SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "k1_attention",
+# One count per wrapper: "attention" is the attention inside the K1/K2/K3
+# chains, "k4" and "k5" the stand-alone attention kernels, "k7" K4's
+# backward (one count per call, which launches its two CUDA kernels).
+LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "k4": 0, "k5": 0,
+                            "k7": 0, "log_mel": 0}
+# launch-count key → C entry point
+_SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "caco_attention",
+            "k4": "caco_attention", "k5": "caco_attention", "k7": "caco_attention_bwd",
             "log_mel": "k8_log_mel"}
 
 _VSCALE = 2.0 ** -24
@@ -132,9 +138,10 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.k1_layer_norm.argtypes = [i, p, p, p, p, i, i, f, p]
     lib.k1_gemm.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
-    lib.k1_attention.argtypes = [i, p, p, p, i, i, i, i, f, p]
+    lib.caco_attention.argtypes = [i, p, p, p, i, i, p, p, i, i, i, i, f, i, p]
+    lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
-    for sym in _SYMBOLS.values():
+    for sym in set(_SYMBOLS.values()):
         getattr(lib, sym).restype = ctypes.c_int
     _lib = lib
     return lib
@@ -247,41 +254,162 @@ def q_scale(head_dim: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / head_dim ** 0.5, dtype=dtype))
 
 
-def attention_plain(qkv, mask, num_heads: int):
-    """The Pallas kernel's masked attention over fused (B, S, 3D) QKV."""
-    b, s, three_d = qkv.shape
-    d = three_d // 3
-    hd = d // num_heads
-    dt = qkv.dtype
-    q, k, v = (t.reshape(b, s, num_heads, hd) for t in qkv.split(d, dim=-1))
+def ds_scale(head_dim: int) -> float:
+    """1/sqrt(Dh) as the backward kernel multiplies dS: fp32
+    (`_bwd_kernel`, encoder_attention.py:1118, :1134)."""
+    return float(torch.tensor(1.0 / head_dim ** 0.5, dtype=torch.float32))
+
+
+def split_heads(t, num_heads):
+    """(B, S, H·Dh) → (B, H, S, Dh)."""
+    b, s, d = t.shape
+    return t.reshape(b, s, num_heads, d // num_heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(t):
+    """(B, H, S, Dh) → (B, S, H·Dh)."""
+    b, h, s, hd = t.shape
+    return t.permute(0, 2, 1, 3).reshape(b, s, h * hd)
+
+
+def _kbias(mask, s: int, causal: bool):
+    """The per-key bias of the max-free softmax, (B, 1, 1 or S, S) fp32:
+    80 where a key may be attended, -1e30 elsewhere (`_softmax_kbias`,
+    `_softmax_kbias_causal`, encoder_attention.py:137-161)."""
+    allowed = mask[:, None, None, :] > 0
+    if causal:
+        allowed = allowed & torch.ones(s, s, dtype=torch.bool, device=mask.device).tril()
+    return torch.where(allowed, _SOFTMAX_CLAMP, _NEG_INF).to(torch.float32)
+
+
+def attention_core_plain(q, k, v, mask, num_heads: int, causal: bool = False):
+    """The Pallas kernels' masked attention with q, k, v each (B, S, H·Dh)
+    (views of a fused QKV are fine) → (B, S, H·Dh)."""
+    dt, s = q.dtype, q.shape[1]
+    hd = q.shape[-1] // num_heads
+    q, k, v = split_heads(q, num_heads), split_heads(k, num_heads), split_heads(v, num_heads)
     qs = (q.float() * q_scale(hd, dt)).to(dt)
-    logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    kbias = torch.where(mask[:, None, None, :] > 0, _SOFTMAX_CLAMP, _NEG_INF).to(torch.float32)
-    p = torch.exp(torch.minimum(logits, kbias))
+    logits = qs.float() @ k.float().transpose(-1, -2)
+    p = torch.exp(torch.minimum(logits, _kbias(mask, s, causal)))
     rowsum = p.sum(dim=-1, keepdim=True).clamp_min(_ROWSUM_FLOOR)
     vs = (v.float() * _VSCALE).to(dt)
-    o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), vs.float())
-    o = (o / rowsum) * (1.0 / _VSCALE)
-    return o.permute(0, 2, 1, 3).reshape(b, s, d).to(dt)
+    o = p.to(dt).float() @ vs.float()
+    return merge_heads((o / rowsum) * (1.0 / _VSCALE)).to(dt)
+
+
+def attention_plain(qkv, mask, num_heads: int, causal: bool = False):
+    """The Pallas kernel's masked attention over fused (B, S, 3D) QKV."""
+    return attention_core_plain(*qkv.chunk(3, dim=-1), mask, num_heads, causal)
+
+
+def attention_split_plain(q, kv, mask, num_heads: int):
+    """The same over separate Q (B, S, D) and K|V (B, S, 2D) (K5's operands)."""
+    return attention_core_plain(q, *kv.chunk(2, dim=-1), mask, num_heads)
+
+
+def _attention_launch(counter: str, q, k, v, q_row: int, kv_row: int, mask, num_heads: int,
+                      causal: bool):
+    b, s, d = q.shape[0], q.shape[1], q.shape[-1]
+    hd = d // num_heads
+    _need(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype, f"dtype {q.dtype}")
+    _need(d % num_heads == 0 and d % 8 == 0, f"width {d} with {num_heads} heads")
+    _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
+          "mask must be contiguous int32 (B, S)")
+    if q.dtype == torch.bfloat16:
+        _need(hd in (64, 96), f"bf16 head dim {hd} (64 or 96)")
+    else:
+        _need(0 < hd <= 96, f"fp32 head dim {hd} (at most 96)")
+    _need(b > 0 and s > 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+          "empty or misaligned q/k/v")
+    out = torch.empty(b, s, d, dtype=q.dtype, device=q.device)
+    _launch(counter, q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_row, kv_row, mask.data_ptr(), out.data_ptr(), b, s, num_heads, hd,
+            q_scale(hd, q.dtype), int(causal))
+    return out
+
+
+def _fused_qkv_launch(counter: str, qkv, mask, num_heads: int, causal: bool):
+    _check_common(qkv)
+    _need(qkv.dim() == 3 and qkv.shape[-1] % (3 * num_heads) == 0, "qkv shape")
+    q, k, v = qkv.chunk(3, dim=-1)
+    return _attention_launch(counter, q, k, v, qkv.shape[-1], qkv.shape[-1], mask, num_heads,
+                             causal)
 
 
 def attention(qkv, mask, num_heads: int):
-    """(B, S, 3D) fused QKV + (B, S) key mask → (B, S, D) (csrc/attention.cu)."""
+    """The attention inside the K1/K2/K3 chains: (B, S, 3D) fused QKV +
+    (B, S) key mask → (B, S, D) (csrc/attention.cu)."""
     if _device_kind(qkv, mask) == "cpu":
         return attention_plain(qkv, mask, num_heads)
+    return _fused_qkv_launch("attention", qkv, mask, num_heads, False)
+
+
+def attention_k4(qkv, mask, num_heads: int, causal: bool = False):
+    """K4 (`_pallas_forward`): the same attention as a kernel of its own,
+    optionally causal (csrc/attention.cu)."""
+    if _device_kind(qkv, mask) == "cpu":
+        return attention_plain(qkv, mask, num_heads, causal)
+    return _fused_qkv_launch("k4", qkv, mask, num_heads, causal)
+
+
+def attention_k5(q, kv, mask, num_heads: int):
+    """K5 (`_pallas_forward_blocked`) at the length it is given: Q (B, S, D)
+    and K|V (B, S, 2D) → (B, S, D) (csrc/attention.cu).  The padding to the
+    blocked plan's length is the caller's (ops/encoder_attention.py)."""
+    if _device_kind(q, kv, mask) == "cpu":
+        return attention_split_plain(q, kv, mask, num_heads)
+    _check_common(q)
+    _check_common(kv)
+    _need(q.dim() == 3 and kv.shape == (*q.shape[:2], 2 * q.shape[-1]), "q / kv shapes")
+    k, v = kv.chunk(2, dim=-1)
+    return _attention_launch("k5", q, k, v, q.shape[-1], kv.shape[-1], mask, num_heads, False)
+
+
+def attention_bwd_plain(qkv, mask, g, num_heads: int, causal: bool = False):
+    """K7 (`_bwd_kernel`, encoder_attention.py:1100-1144): d qkv of K4's
+    attention for the output gradient g, in the fused (B, S, 3D) layout.
+    Products of compute-dtype operands sum in fp32; P and dS are rounded to
+    the compute dtype T where the kernel rounds them."""
+    dt, s = qkv.dtype, qkv.shape[1]
+    q, k, v = (split_heads(t, num_heads).float() for t in qkv.chunk(3, dim=-1))
+    go = split_heads(g.to(dt), num_heads).float()
+    hd = q.shape[-1]
+    logits = (q * q_scale(hd, dt)).to(dt).float() @ k.transpose(-1, -2)
+    p = torch.exp(torch.minimum(logits, _kbias(mask, s, causal)))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(_ROWSUM_FLOOR)
+    dv = p.to(dt).float().transpose(-1, -2) @ go
+    dp = go @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = torch.where(mask[:, None, None, :] > 0, ds, 0.0) * ds_scale(hd)
+    dsb = ds.to(dt).float()
+    dq, dk = dsb @ k, dsb.transpose(-1, -2) @ q
+    return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+
+
+def attention_bwd(qkv, mask, g, num_heads: int, causal: bool = False):
+    """K7: d qkv (B, S, 3D) for the output gradient g (B, S, D)
+    (csrc/attention_bwd.cu: a pass per query tile for the row sums, Δ and
+    dQ, then a pass per key tile for dK and dV)."""
+    if _device_kind(qkv, mask, g) == "cpu":
+        return attention_bwd_plain(qkv, mask, g, num_heads, causal)
     _check_common(qkv)
     _need(qkv.dim() == 3 and qkv.shape[-1] % (3 * num_heads) == 0, "qkv shape")
     b, s, three_d = qkv.shape
     d = three_d // 3
     hd = d // num_heads
+    _need(g.shape == (b, s, d) and g.dtype == qkv.dtype and g.is_contiguous(),
+          "g must be contiguous (B, S, D) in qkv's dtype")
     _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
           "mask must be contiguous int32 (B, S)")
     if qkv.dtype == torch.bfloat16:
         _need(hd in (64, 96), f"bf16 head dim {hd} (64 or 96)")
     else:
         _need(0 < hd <= 96, f"fp32 head dim {hd} (at most 96)")
-    _need(b > 0 and s > 0 and qkv.data_ptr() % 16 == 0, "empty or misaligned qkv")
-    out = torch.empty(b, s, d, dtype=qkv.dtype, device=qkv.device)
-    _launch("attention", qkv.device, _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, s, num_heads, hd, q_scale(hd, qkv.dtype))
-    return out
+    _need(d % 8 == 0 and qkv.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0,
+          "width not a multiple of 8, or misaligned qkv / g")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(2 * b * num_heads * s, dtype=torch.float32, device=qkv.device)
+    _launch("k7", qkv.device, _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, num_heads, hd,
+            q_scale(hd, qkv.dtype), ds_scale(hd), int(causal))
+    return dqkv

@@ -1,5 +1,6 @@
-"""The audio encoder's fused layer kernels (K1, K2, K3) and the route
-decision that picks among them, as the JAX package computes them.
+"""The audio encoder's attention kernels — the fused layer chains K1, K2,
+K3 and the stand-alone attention K4 / K5 with K4's backward K7 — and the
+route decisions that pick among them, as the JAX package computes them.
 
 **Which computation a layer performs.**  The JAX package decides per layer
 (`_vit_block`, cacophony_tpu/models/audio.py:150-185) among its Pallas
@@ -45,6 +46,16 @@ then per q-block" becomes here.
 plain PyTorch versions on a CPU tensor; the `*_plain` functions run the
 plain versions on any device (the reference chip_smoke.py holds the
 kernels to).
+
+**K4, K5 and K7** are what training reaches (`multi_head_attention`,
+ops/attention.py, for a one-shot or blocked plan).  `encoder_attention` is
+K4 as a `torch.autograd.Function` whose backward is K7 when the reference's
+`bwd_fits_vmem` holds, and otherwise autograd through `xla_attention`, the
+textbook softmax with −1e30 masking that JAX's rematerialising backward
+differentiates (encoder_attention.py:1223-1238).  `encoder_attention_blocked`
+is K5 over Q and K|V padded to the blocked plan's length, padded keys
+masked and padded query rows sliced away; its backward is autograd through
+`xla_attention_split` at the unpadded length (:1276-1287).
 """
 
 from __future__ import annotations
@@ -160,6 +171,15 @@ def layer_route(seq: int, d_model: int, intermediate: int,
     return "k5", plan[1]
 
 
+def bwd_fits_vmem(seq: int, d_model: int, dtype: torch.dtype) -> bool:
+    """Whether JAX's K4 backward is the Pallas kernel K7 (encoder_attention.py:1172)
+    rather than XLA rematerialisation: qkv + g in, d_qkv out, double-buffered,
+    plus two fp32 (S, S) tiles and one in the compute dtype."""
+    e = _esize(dtype)
+    blocks = seq * 3 * d_model * e * 2 + seq * d_model * e
+    return 2 * blocks + 2 * seq * seq * 4 + seq * seq * e <= VMEM_BUDGET_BYTES
+
+
 def preferred_seq_len(seq: int, d_model: int, dtype: torch.dtype) -> int:
     """The engine's patch budget: rounded up to the blocked plan's padded
     length, as the JAX engine sizes it (runtime/engine.py:82-89); unchanged
@@ -247,3 +267,109 @@ def fused_block_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, 
                       *, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 / K3 through the plain PyTorch versions, on any device."""
     return _padded_block(_PLAIN_OPS, blk, x, mask, num_heads, eps, blocked)
+
+
+# ------------------------------------------- K4, K5 and K4's backward K7
+
+def xla_attention(qkv, mask, num_heads: int, causal: bool = False):
+    """`_xla_attention` (encoder_attention.py:1182): textbook softmax over
+    fp32 logits with −1e30 masking, P cast to the compute dtype before P·V.
+    Differentiated by autograd where JAX rematerialises K4's backward."""
+    dt, s = qkv.dtype, qkv.shape[1]
+    q, k, v = (kern.split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    return _xla_core(q, k, v, mask, causal, dt, s)
+
+
+def xla_attention_split(q, kv, mask, num_heads: int):
+    """`_xla_attention_split` (:1244): the same over Q and K|V (K5's backward)."""
+    k, v = kv.chunk(2, dim=-1)
+    return _xla_core(*(kern.split_heads(t, num_heads) for t in (q, k, v)), mask, False, q.dtype,
+                     q.shape[1])
+
+
+def _xla_core(q, k, v, mask, causal, dt, s):
+    # JAX multiplies by a weakly typed 1/sqrt(Dh), which it first casts to dt
+    q = q * kern.q_scale(q.shape[-1], dt)
+    logits = q.float() @ k.float().transpose(-1, -2)
+    allowed = mask[:, None, None, :] > 0
+    if causal:
+        allowed = allowed & torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    w = torch.softmax(torch.where(allowed, logits, kern._NEG_INF), dim=-1).to(dt)
+    return kern.merge_heads(w @ v)
+
+
+class _EncoderAttention(torch.autograd.Function):
+    """K4 forward; K7 backward when `bwd_fits_vmem`, else autograd of `xla_attention`."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, num_heads, causal):
+        ctx.save_for_backward(qkv, mask)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return kern.attention_k4(qkv, mask, num_heads, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask = ctx.saved_tensors
+        g = g.to(qkv.dtype).contiguous()
+        if bwd_fits_vmem(qkv.shape[1], qkv.shape[-1] // 3, qkv.dtype):
+            return kern.attention_bwd(qkv, mask, g, ctx.num_heads, ctx.causal), None, None, None
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            (d_qkv,) = torch.autograd.grad(xla_attention(x, mask, ctx.num_heads, ctx.causal), x, g)
+        return d_qkv, None, None, None
+
+
+def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                      causal: bool = False) -> torch.Tensor:
+    """K4: (B, S, 3D) fused QKV + (B, S) key mask → (B, S, D), differentiable;
+    the plan must be one-shot, as `_pallas_forward` asserts."""
+    b, s, three_d = qkv.shape
+    plan = kernel_plan(s, three_d // 3, qkv.dtype)
+    if plan is None or plan[0] != "one_shot":
+        raise ValueError(f"K4 needs a one-shot plan; seq {s} has {plan}")
+    return _EncoderAttention.apply(qkv.contiguous(), mask.to(torch.int32).contiguous(),
+                                   num_heads, causal)
+
+
+def _blocked_forward(q, kv, mask, num_heads: int, attend):
+    """Pad Q, K|V and the mask to the blocked plan's length, attend, slice
+    the padded query rows away (`_pallas_forward_blocked`, :351-388)."""
+    s, d = q.shape[1], q.shape[-1]
+    plan = kernel_plan(s, d, q.dtype)
+    if plan is None or plan[0] != "blocked":
+        raise ValueError(f"K5 needs a blocked plan; seq {s} has {plan}")
+    pad = plan[1] - s
+    q, kv = (torch.nn.functional.pad(t, (0, 0, 0, pad)).contiguous() for t in (q, kv))
+    mask = torch.nn.functional.pad(mask.to(torch.int32), (0, pad)).contiguous()
+    return attend(q, kv, mask, num_heads)[:, :s]
+
+
+class _EncoderAttentionBlocked(torch.autograd.Function):
+    """K5 forward; backward by autograd of `xla_attention_split` at the unpadded length."""
+
+    @staticmethod
+    def forward(ctx, q, kv, mask, num_heads):
+        ctx.save_for_backward(q, kv, mask)
+        ctx.num_heads = num_heads
+        return _blocked_forward(q, kv, mask, num_heads, kern.attention_k5)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qq, kk = q.detach().requires_grad_(), kv.detach().requires_grad_()
+            out = xla_attention_split(qq, kk, mask, ctx.num_heads)
+            d_q, d_kv = torch.autograd.grad(out, (qq, kk), g.to(q.dtype))
+        return d_q, d_kv, None, None
+
+
+def encoder_attention_blocked(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """K5: Q (B, S, D) and K|V (B, S, 2D) + (B, S) key mask → (B, S, D),
+    differentiable; the plan must be blocked."""
+    return _EncoderAttentionBlocked.apply(q, kv, mask, num_heads)
+
+
+def encoder_attention_blocked_plain(q, kv, mask, num_heads: int) -> torch.Tensor:
+    """K5's forward through the plain version, on any device."""
+    return _blocked_forward(q, kv, mask, num_heads, kern.attention_split_plain)

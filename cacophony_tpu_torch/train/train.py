@@ -1,0 +1,232 @@
+"""The stage-2 (CACO) training step (cacophony_tpu/train/train.py:36-190).
+
+    step = make_caco_train_step(cfg, tc)
+    state = init_train_state(model, tc)
+    state, metrics = step(state, batch, generator)
+
+Loss = symmetric contrastive + `caption_loss_weight` × teacher-forced
+caption cross-entropy; the caption branch reuses the text tower's hidden
+states `t_hidden[:, :-1]` (the tower is causal, so they equal a pass over
+`ids[:, :-1]`).  `metrics` holds `loss`, `contrastive`, `caption` and
+`grad_norm` (the global norm before clipping), as 0-d tensors.
+
+The optimizer is the JAX package's optax chain, written out:
+clip_by_global_norm → AdamW (b1 0.9, b2 0.999, eps 1e-8) with
+`warmup_cosine_decay_schedule(0, lr, warmup, total_steps)` and the weight-
+decay mask of `make_optimizer` (checkpoints/bridge.py:decay_mask: by the
+rank of the JAX leaf, so block biases and LayerNorms are decayed).  With
+`adam_mu_dtype="bfloat16"` the first moment is stored in bf16 in optax's
+order: the update uses the new fp32 moment, and only then is the moment
+rounded for storage.  The new moment is 0.1·g + b1′·mu in fp32 with
+b1′ = 0.9 rounded to bf16 (0.8984375): JAX casts the weakly typed 0.9 to
+mu's dtype, and under `jit` XLA keeps the product in fp32 (measured
+against the jitted optax update; eagerly, optax would round it to bf16).
+The schedule is 0 at step 0, so the first step moves no parameter.
+
+Parameters stay fp32 and are cast to the compute dtype at each use.  The
+port updates parameters and moments in place (JAX donates the state);
+`init_train_state` keeps a reference to the model.  The in-step random
+numbers (dropout) come from the `torch.Generator` passed to the step, on
+the parameters' device.  On a card, the step factory turns off TF32 and
+reduced-precision bf16 reductions for this process, as the engine does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from cacophony_tpu_torch.checkpoints.bridge import decay_mask
+from cacophony_tpu_torch.configs import CacoConfig
+from cacophony_tpu_torch.models.caco import CacoModel, get_audio_embedding, get_text_embedding
+from cacophony_tpu_torch.models.text import caption_decoder_apply
+from cacophony_tpu_torch.train.losses import caption_cross_entropy, clip_contrastive_loss
+
+_DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    max_grad_norm: float = 1.0
+    caption_loss_weight: float = 1.0
+    # recompute the audio encoder's forward in the backward (activation memory)
+    remat_encoder: bool = False
+    # Adam first-moment storage dtype; None keeps it fp32
+    adam_mu_dtype: Optional[str] = "bfloat16"
+
+
+def learning_rate(tc: TrainConfig, count: int) -> float:
+    """optax `warmup_cosine_decay_schedule(0, lr, warmup, total_steps)` at
+    `count`, in fp32 arithmetic as optax evaluates it."""
+    f32 = np.float32
+    warmup = min(tc.warmup_steps, max(0, tc.total_steps - 1))
+    peak = f32(tc.learning_rate)
+    if count < warmup:
+        frac = f32(1) - f32(min(max(count, 0), warmup)) / f32(warmup)
+        return float(-peak * frac + peak)
+    decay_steps = f32(tc.total_steps - warmup)
+    c = min(f32(count - warmup), decay_steps)
+    cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / decay_steps))
+    return float(peak * cosine)
+
+
+class AdamWState(NamedTuple):
+    mu: List[torch.Tensor]  # first moments, in adam_mu_dtype
+    nu: List[torch.Tensor]  # second moments, fp32
+    count: int
+
+
+class AdamW:
+    """clip_by_global_norm → optax.adamw with the JAX decay mask, over the
+    model's parameters in `named_parameters()` order."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, tc: TrainConfig):
+        self.tc = tc
+        self.mu_dtype = _DTYPES[tc.adam_mu_dtype]
+        self.b1_mu = float(torch.tensor(self.b1, dtype=self.mu_dtype))  # see the module docstring
+
+    def init(self, model: torch.nn.Module) -> AdamWState:
+        ps = [p for _, p in model.named_parameters()]
+        return AdamWState([torch.zeros_like(p, dtype=self.mu_dtype) for p in ps],
+                          [torch.zeros_like(p) for p in ps], 0)
+
+    @torch.no_grad()
+    def update(self, model: torch.nn.Module, grads: List[torch.Tensor], state: AdamWState,
+               grad_norm: torch.Tensor) -> AdamWState:
+        """Apply one update to the model's parameters in place; → the new state."""
+        tc, b1, b2 = self.tc, self.b1, self.b2
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
+        if not bool(grad_norm < tc.max_grad_norm):  # optax: select(norm < max, g, g / norm · max)
+            grads = torch._foreach_div(grads, grad_norm)
+            torch._foreach_mul_(grads, tc.max_grad_norm)
+        mu = torch._foreach_mul(grads, 1 - b1)
+        torch._foreach_add_(mu, state.mu, alpha=self.b1_mu)
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_add_(state.nu, sq)
+        torch._foreach_copy_(state.mu, mu)  # stored moment: rounded after the update uses it
+        count = state.count + 1
+        f32 = np.float32
+        bc1 = float(f32(1) - np.power(f32(b1), f32(count)))
+        bc2 = float(f32(1) - np.power(f32(b2), f32(count)))
+        torch._foreach_div_(mu, bc1)
+        denom = torch._foreach_div(state.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(mu, denom)  # mu is now the Adam update
+        mask = decay_mask(model)
+        decayed = [i for i, (name, _) in enumerate(named) if mask[name]]
+        if decayed:
+            wd = torch._foreach_mul([params[i] for i in decayed], tc.weight_decay)
+            torch._foreach_add_([mu[i] for i in decayed], wd)
+        torch._foreach_mul_(mu, -learning_rate(tc, state.count))
+        torch._foreach_add_(params, mu)
+        return AdamWState(state.mu, state.nu, count)
+
+
+def make_optimizer(tc: TrainConfig) -> AdamW:
+    return AdamW(tc)
+
+
+class TrainState(NamedTuple):
+    params: CacoModel
+    opt_state: AdamWState
+    step: int
+
+
+def init_train_state(params: CacoModel, tc: TrainConfig) -> TrainState:
+    return TrainState(params, make_optimizer(tc).init(params), 0)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ ‖t‖²) over all tensors (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def make_caco_loss(cfg: CacoConfig, tc: TrainConfig):
+    """→ loss_fn(model, batch, generator) → (loss, metrics): the stage-2
+    objective of `make_caco_train_step` without the optimizer."""
+
+    def audio(model, batch, generator):
+        arrays = (batch["audio_patches"], batch["audio_time_inds"], batch["audio_freq_inds"],
+                  batch["audio_mask"])
+        if not tc.remat_encoder:
+            return get_audio_embedding(model, cfg, *arrays, train=True, generator=generator)
+        # The recomputation in the backward must draw the same dropout masks:
+        # both passes run on a copy of the generator's state at this point,
+        # and the generator then continues from where the first pass ended.
+        start = generator.get_state() if generator is not None else None
+        end = []
+
+        def fwd(*xs):
+            g = None
+            if start is not None:
+                g = torch.Generator(device=generator.device)
+                g.set_state(start)
+            out = get_audio_embedding(model, cfg, *xs, train=True, generator=g)
+            if g is not None:
+                end.append(g.get_state())
+            return out
+
+        out = checkpoint(fwd, *arrays, use_reentrant=False)
+        if end:
+            generator.set_state(end[0])
+        return out
+
+    def loss_fn(model: CacoModel, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]):
+        a_emb, a_hidden = audio(model, batch, generator)
+        ids, tmask = batch["text_input_ids"], batch["text_mask"]
+        t_emb, t_hidden = get_text_embedding(model, cfg, ids, tmask, train=True,
+                                             generator=generator)
+        l_con = clip_contrastive_loss(a_emb, t_emb, model.logit_scale)
+        logits = caption_decoder_apply(model.decoder, cfg.decoder, t_hidden[:, :-1],
+                                       tmask[:, :-1], a_hidden, batch["audio_mask"], train=True,
+                                       generator=generator, dtype=cfg.dtype)
+        l_cap = caption_cross_entropy(logits.float(), ids[:, 1:], tmask[:, 1:])
+        loss = l_con + tc.caption_loss_weight * l_cap
+        return loss, {"loss": loss, "contrastive": l_con, "caption": l_cap}
+
+    return loss_fn
+
+
+def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig):
+    """→ step(state, batch, generator) → (state, metrics).  batch:
+    audio_patches / audio_time_inds / audio_freq_inds / audio_mask and
+    text_input_ids / text_mask, on the parameters' device."""
+    if torch.cuda.is_available():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    opt = make_optimizer(tc)
+    loss_fn = make_caco_loss(cfg, tc)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator]):
+        model = state.params
+        for p in model.parameters():
+            p.grad = None
+        loss, metrics = loss_fn(model, batch, generator)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in model.parameters()]
+        norm = global_norm(grads)
+        opt_state = opt.update(model, grads, state.opt_state, norm)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = norm
+        return TrainState(model, opt_state, state.step + 1), metrics
+
+    return step

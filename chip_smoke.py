@@ -26,12 +26,28 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    with K3 launched 12 times per bucket and K1 none, embed_audio_long on
    clips of 45-75 s; against an fp32 30-s engine (no kernel: the einsum
    route) at cosine >= 0.999;
-9. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
-   kernel and chain, the K2 and K3 blocks and K8 against their plain
-   versions, beside the card's name and power limit.
+9. K4, K5 and K7 against their plain versions: K4 at B=8, S=500, H=8,
+   Dh=96 in bf16 and fp32 and causal at H=12, Dh=64, S=100, padded keys
+   and an all-masked clip; K5 at S=1500 padded to 1536 in bf16; K7 in bf16
+   at S=500 and fp32 at S=100, causal and not, the all-masked clip's
+   gradients finite and zero;
+10. the stage-2 training step (train/train.py) at caco_base in bf16: B=16,
+   500 patches from `device_train_frontend` on synthetic 3-10-s wavs, 100
+   tokens; 5 steps on one batch with warmup 1: K4 and K7 launched 12 times
+   per step and no K1, K2, K3 or K5; finite loss and grad_norm, the loss
+   falls from step 1 to step 4; peak device memory;
+11. the fp32 10-s step (text dropout off): K4 12 per step and no K7; its
+   loss and gradients at B=2 against the same fp32 step on the CPU through
+   the plain versions; 3 timed steps;
+12. the bf16 30-s step at B=4 (1500 patches, blocked plan 1536): K5 12
+   times per step and no K4 or K7; peak memory, 3 timed steps;
+13. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
+   kernel and chain, the K2 and K3 blocks, K4, K5, K7 and K8 against their
+   plain versions, and the bf16 10-s training step (median of 6),
+   beside the card's name and power limit.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
-entry per TPU kernel (K1, K2, K3, K8); the last line is
+entry per TPU kernel (K1, K2, K3, K4, K5, K7, K8); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -39,6 +55,7 @@ It needs a CUDA device and never imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,13 +65,16 @@ import numpy as np
 import torch
 
 from cacophony_tpu_torch import configs
+from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
 from cacophony_tpu_torch.frontend import fused
+from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
 from cacophony_tpu_torch.models.audio import ViTBlock
 from cacophony_tpu_torch.models.caco import caco_init
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
+from cacophony_tpu_torch.train import train
 
 SEED = 0
 DEVICE = "cuda"
@@ -74,18 +94,29 @@ TPU_KERNELS = {  # name → (sources, the Pallas function it replaces, launch-co
     "K1": (CHAIN_SOURCES, f"{EA}:594", "k1_layer"),  # _pallas_fused_block, with_mlp=True
     "K2": (CHAIN_SOURCES, f"{EA}:594", "k2_block"),  # _pallas_fused_block, with_mlp=False
     "K3": (CHAIN_SOURCES, f"{EA}:763", "k3_block"),  # _pallas_fused_block_blocked
+    "K4": (CSRC + "attention.cu", f"{EA}:317", "k4"),  # _pallas_forward
+    "K5": (CSRC + "attention.cu", f"{EA}:351", "k5"),  # _pallas_forward_blocked
+    "K7": (CSRC + "attention_bwd.cu", f"{EA}:1147", "k7"),  # _pallas_backward
     "K8": (CSRC + "log_mel.cu", "cacophony_tpu/frontend/fused.py:153", "log_mel"),
 }
+TRAIN_BATCH, TRAIN_BATCH_30, TEXT_LEN = 16, 4, 100
+TRAIN_STEPS = 5
 # |kernel - plain| ≤ atol + rtol·|plain|, elementwise.  bf16: outputs are
 # rounded to bf16 (8 mantissa bits) after fp32 sums taken in another order,
 # so one rounding step apart is 2^-8 relative; the chain compounds seven
 # such steps.  fp32: summation order only.  K8: fp32 sums in another order,
 # and the log scales a mel error δ by 0.2/(mel + 1e-5).
 TOL = {
-    torch.bfloat16: {"kernel": (2e-2, 1e-2), "chain": (6e-2, 3e-2)},
-    torch.float32: {"kernel": (1e-4, 1e-4), "chain": (5e-4, 5e-4)},
+    torch.bfloat16: {"kernel": (2e-2, 1e-2), "chain": (6e-2, 3e-2), "k7": (3e-2, 2e-2)},
+    torch.float32: {"kernel": (1e-4, 1e-4), "chain": (5e-4, 5e-4), "k7": (1e-4, 1e-4)},
     "log_mel": (1e-4, 0.0),
 }
+# K7's bf16 bound is wider than one kernel's: P and dS are rounded to bf16
+# before their products, so a rounding step of either moves a gradient by
+# one more.  The fp32 step on the card against the same step on the CPU
+# (phase 11): the loss to 1e-5 and the gradients to 1e-4 relative (fp32
+# sums in another order through 28 layers and their backward).
+STEP_TOL = {"loss": 1e-5, "grads": 1e-4}
 # The fused and the unfused frontend give the same fp32 log-mel up to the
 # order of fp32 sums (~1e-6); after the cast to bf16 a patch value changes
 # only where it lies that close to a rounding boundary, by one bf16 step.
@@ -275,6 +306,202 @@ def log_mel_phase():
     return err
 
 
+def _dt_name(dt) -> str:
+    return str(dt).split(".")[-1]
+
+
+@torch.inference_mode()
+def attention_phase():
+    """Phase 9: K4, K5 and K7 against their plain versions, B=8; clip 6 has
+    no valid key."""
+    b = 8
+    gen = torch.Generator().manual_seed(SEED + 5)
+    lengths = {500: [500, 400, 300, 500, 100, 250, 0, 17], 100: [100, 80, 60, 100, 20, 50, 0, 3],
+               1500: [1500, 1200, 700, 1500, 100, 37, 0, 1000]}
+
+    def inputs(s, width, dt):
+        x = (1.5 * torch.randn(b, s, width, generator=gen)).to(DEVICE, dt)
+        mask = (torch.arange(s)[None, :] < torch.tensor(lengths[s])[:, None]).to(DEVICE, torch.int32)
+        return x, mask
+
+    errs = {}
+    cases = ((torch.bfloat16, 500, 8, False), (torch.float32, 500, 8, False),
+             (torch.bfloat16, 100, 12, True), (torch.float32, 100, 12, True))
+    print("phase 9: K4, K5, K7 vs plain, B=8")
+    for dt, s, heads, causal in cases:
+        qkv, mask = inputs(s, 3 * D, dt)
+        label = f"K4 {_dt_name(dt)} S={s} H={heads}{' causal' if causal else ''}"
+        got = kern.attention_k4(qkv, mask, heads, causal)
+        err = compare(label, got, kern.attention_plain(qkv, mask, heads, causal), *TOL[dt]["kernel"])
+        errs["K4"] = max(errs.get("K4", 0.0), err)
+        check(bool((got[6] == 0).all()), f"{label}: the all-masked clip is not exactly 0")
+    q, mask = inputs(1500, D, torch.bfloat16)
+    kv, _ = inputs(1500, 2 * D, torch.bfloat16)
+    errs["K5"] = compare("K5 bf16 S=1500 (padded to 1536)", ea.encoder_attention_blocked(q, kv, mask, H),
+                         ea.encoder_attention_blocked_plain(q, kv, mask, H), *TOL[torch.bfloat16]["kernel"])
+    cases = ((torch.bfloat16, 500, 8, False), (torch.bfloat16, 500, 8, True),
+             (torch.float32, 100, 8, False), (torch.float32, 100, 12, True))
+    for dt, s, heads, causal in cases:
+        qkv, mask = inputs(s, 3 * D, dt)
+        g = torch.randn(b, s, D, generator=gen).to(DEVICE, dt)
+        label = f"K7 {_dt_name(dt)} S={s} H={heads}{' causal' if causal else ''}"
+        got = kern.attention_bwd(qkv, mask, g, heads, causal)
+        err = compare(label, got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), *TOL[dt]["k7"])
+        errs["K7"] = max(errs.get("K7", 0.0), err)
+        check(bool((got[6] == 0).all()), f"{label}: the all-masked clip's gradients are not 0")
+    return errs
+
+
+def train_batch(cfg, rs, b: int, seconds: int, seq_len: int):
+    """A stage-2 batch on the card: synthetic clips of 3 s to `seconds` s
+    through `device_train_frontend` (every patch of the buffer, then a
+    sorted random subset of seq_len), and token ids of 8-100 tokens."""
+    front = configs.FrontendConfig()
+    samples = seconds * front.sample_rate
+    lens = rs.randint(3 * front.sample_rate, samples + 1, size=b).astype(np.int32)
+    bufs = np.zeros((b, samples), np.float32)
+    for i, n in enumerate(lens):
+        bufs[i, :n] = 0.1 * rs.randn(n)
+    full = num_patches_for_samples(samples, front, configs.PatchConfig())
+    frontend = device_train_frontend(front, configs.PatchConfig(patches_seq_len=max(full, seq_len)),
+                                     seq_len)
+    batch = frontend(torch.Generator(device=DEVICE).manual_seed(SEED),
+                     torch.from_numpy(bufs).to(DEVICE), torch.from_numpy(lens).to(DEVICE))
+    tmask = (np.arange(TEXT_LEN)[None] < rs.randint(8, TEXT_LEN + 1, size=b)[:, None]).astype(np.int32)
+    ids = np.where(tmask > 0, rs.randint(4, cfg.text.vocab_size, size=(b, TEXT_LEN)), 1)
+    batch["text_input_ids"] = torch.from_numpy(ids.astype(np.int32)).to(DEVICE)
+    batch["text_mask"] = torch.from_numpy(tmask).to(DEVICE)
+    check(batch["audio_patches"].shape == (b, seq_len, 256), f"patch batch {batch['audio_patches'].shape}")
+    return batch
+
+
+def no_text_dropout(cfg):
+    text = dataclasses.replace(cfg.text, hidden_dropout=0.0, attention_dropout=0.0)
+    dec = dataclasses.replace(cfg.decoder, hidden_dropout=0.0, attention_dropout=0.0)
+    return dataclasses.replace(cfg, text=text, decoder=dec)
+
+
+NO_SERVING_KERNELS = {"k1_layer": 0, "k2_block": 0, "k3_block": 0, "attention": 0, "gemm": 0, "layer_norm": 0,
+        "log_mel": 0}  # training runs none of the serving kernels
+
+
+def time_steps(step, state, batch, gen, n: int):
+    """n more steps, each timed on the host clock between synchronisations
+    → (state, sorted ms)."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, sorted(ms)
+
+
+def train_bf16_phase(cfg, rs):
+    """Phase 10: the bf16 10-s step at caco_base, B=16, 5 steps on one batch
+    (text dropout 0.1 as configured), then 6 timed steps."""
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    n = cfg.audio.num_layers
+    tc = train.TrainConfig(warmup_steps=1, total_steps=100)
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    state = train.init_train_state(model, tc)
+    step = train.make_caco_train_step(cfg, tc)
+    batch = train_batch(cfg, rs, TRAIN_BATCH, 10, 500)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    print(f"phase 10: bf16 10-s training step, caco_base, B={TRAIN_BATCH}, 500 patches, "
+          f"{TEXT_LEN} tokens, {TRAIN_STEPS} steps")
+    metrics = []
+
+    def steps():
+        nonlocal state
+        for _ in range(TRAIN_STEPS):
+            state, m = step(state, batch, gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    _, got = drive("bf16 10-s train step x5", steps,
+                   {"k4": n * TRAIN_STEPS, "k7": n * TRAIN_STEPS, "k5": 0, **NO_SERVING_KERNELS})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    print(f"  loss {['%.5f' % v for v in losses]}\n  grad_norm {['%.4f' % v for v in norms]}\n"
+          f"  peak device memory {peak:.2f} GiB")
+    check(all(np.isfinite(losses + norms)), "non-finite loss or grad_norm")
+    check(losses[4] < losses[1], "the loss did not fall from step 1 to step 4")
+    state, ms = time_steps(step, state, batch, gen, 6)
+    print(f"  step times {['%.2f' % v for v in ms]} ms, median {np.median(ms):.2f} ms/step")
+    del state, model
+    return got, {"loss": losses, "grad_norm": norms, "peak_gib": peak, "step_ms": ms,
+                 "median_step_ms": float(np.median(ms))}
+
+
+def train_fp32_phase(cfg, rs):
+    """Phase 11: the fp32 10-s step (text dropout off, so the card and the
+    CPU compute the same function); then loss and gradients at B=2 against
+    the CPU's plain versions, from the same fresh parameters."""
+    cfg = no_text_dropout(dataclasses.replace(cfg, dtype=torch.float32))
+    n = cfg.audio.num_layers
+    tc = train.TrainConfig(warmup_steps=1, total_steps=100)
+    batch = train_batch(cfg, rs, TRAIN_BATCH, 10, 500)
+    print(f"phase 11: fp32 10-s training step, caco_base, B={TRAIN_BATCH}")
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    state = train.init_train_state(model, tc)
+    step = train.make_caco_train_step(cfg, tc)
+    (_, m), got = drive("fp32 10-s train step", lambda: step(state, batch, None),
+                        {"k4": n, "k7": 0, "k5": 0, **NO_SERVING_KERNELS})
+    check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])),
+          "fp32 step: non-finite loss or grad_norm")
+    state, ms = time_steps(step, state, batch, None, 3)
+    print(f"  step times {['%.2f' % v for v in ms]} ms")
+    del state, model
+    loss_fn = train.make_caco_loss(cfg, tc)
+    small = {k: v[:2] for k, v in batch.items()}
+    out = []
+    for device in (DEVICE, "cpu"):
+        net = caco_init(cfg, torch.Generator().manual_seed(SEED)).to(device)
+        loss, _ = loss_fn(net, {k: v.to(device) for k, v in small.items()}, None)
+        loss.backward()
+        out.append((float(loss.detach()), torch.cat([p.grad.flatten().double().cpu() for p in net.parameters()])))
+        del net
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    l_err = abs(l_card - l_cpu) / abs(l_cpu)
+    g_err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    print(f"  B=2 card vs CPU plain: loss {l_card:.6f} vs {l_cpu:.6f} (rel {l_err:.2e} ≤ "
+          f"{STEP_TOL['loss']}), gradients rel L2 {g_err:.2e} (≤ {STEP_TOL['grads']})")
+    check(l_err <= STEP_TOL["loss"] and g_err <= STEP_TOL["grads"],
+          "fp32 step on the card disagrees with the CPU")
+    return got, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "step_ms": ms,
+                 "b2_loss_rel_err": l_err, "b2_grad_rel_err": g_err}
+
+
+def train_30s_phase(cfg, rs):
+    """Phase 12: the bf16 30-s step, B=4, 1500 patches (blocked plan, 1536)."""
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    n = cfg.audio.num_layers
+    check(ea.kernel_plan(1500, D, torch.bfloat16) == ("blocked", 1536, 256), "30-s plan")
+    tc = train.TrainConfig(warmup_steps=1, total_steps=100)
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    state = train.init_train_state(model, tc)
+    step = train.make_caco_train_step(cfg, tc)
+    batch = train_batch(cfg, rs, TRAIN_BATCH_30, 30, 1500)
+    print(f"phase 12: bf16 30-s training step, caco_base, B={TRAIN_BATCH_30}, 1500 patches")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    (state, m), got = drive("bf16 30-s train step", lambda: step(state, batch, gen),
+                            {"k5": n, "k4": 0, "k7": 0, **NO_SERVING_KERNELS})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])),
+          "30-s step: non-finite loss or grad_norm")
+    state, ms = time_steps(step, state, batch, gen, 3)
+    print(f"  loss {float(m['loss']):.5f}, grad_norm {float(m['grad_norm']):.4f}, "
+          f"peak device memory {peak:.2f} GiB, step times {['%.2f' % v for v in ms]} ms")
+    del state, model
+    return got, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "peak_gib": peak,
+                 "step_ms": ms}
+
+
 def cosine_rows(a, b):
     a = a / np.linalg.norm(a, axis=-1, keepdims=True)
     b = b / np.linalg.norm(b, axis=-1, keepdims=True)
@@ -298,10 +525,11 @@ def byte_tokenizer():
 
 @torch.inference_mode()
 def timing_phase(blk, label):
-    """Phase 9: per-layer K1 chain and each kernel vs plain at B=32, S=496,
+    """Phase 13: per-layer K1 chain and each kernel vs plain at B=32, S=496,
     bf16 (a kernel's time is the sum over its calls in one layer); the K2
     block in fp32 at S=496, the K3 block in bf16 at S=1536, and K8 at 1000
-    and 3000 frames, all at B=32."""
+    and 3000 frames, all at B=32; K4 and K7 at the 10-s step's shape (B=16,
+    S=500, bf16) and K5 at the 30-s step's (B=4, S=1500 padded to 1536)."""
     b, s, d, h = BATCH, 496, D, H
     gen = torch.Generator().manual_seed(SEED + 1)
     lengths = list(np.random.RandomState(SEED).randint(48, 497, size=b))
@@ -320,6 +548,18 @@ def timing_phase(blk, label):
         times[key] = paired_ms(lambda: ea.fused_block(blk, xb, mb, h, 1e-6, blocked=blocked),
                                lambda: ea.fused_block_plain(blk, xb, mb, h, 1e-6, blocked=blocked),
                                5)
+    qkv, m16 = layer_inputs(TRAIN_BATCH, 500, 3 * d, torch.bfloat16, gen,
+                            list(np.random.RandomState(SEED).randint(100, 501, size=TRAIN_BATCH)))
+    g = torch.randn(TRAIN_BATCH, 500, d, generator=gen).to(DEVICE, torch.bfloat16)
+    times["k4"] = paired_ms(lambda: kern.attention_k4(qkv, m16, h),
+                            lambda: kern.attention_plain(qkv, m16, h), 10)
+    times["k7"] = paired_ms(lambda: kern.attention_bwd(qkv, m16, g, h),
+                            lambda: kern.attention_bwd_plain(qkv, m16, g, h), 10)
+    lens = list(np.random.RandomState(SEED).randint(150, 1501, size=TRAIN_BATCH_30))
+    q, m4 = layer_inputs(TRAIN_BATCH_30, 1500, d, torch.bfloat16, gen, lens)
+    kv, _ = layer_inputs(TRAIN_BATCH_30, 1500, 2 * d, torch.bfloat16, gen, lens)
+    times["k5"] = paired_ms(lambda: ea.encoder_attention_blocked(q, kv, m4, h),
+                            lambda: ea.encoder_attention_blocked_plain(q, kv, m4, h), 10)
     front = configs.FrontendConfig()
     for frames in (1000, 3000):
         bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
@@ -330,9 +570,11 @@ def timing_phase(blk, label):
     what = {"layer_norm": "LN1 + LN2 (bf16, S=496)", "gemm": "4 products, one layer (bf16, S=496)",
             "attention": "attention (bf16, S=496)", "k1_layer": "K1 chain, one layer (bf16, S=496)",
             "k2_block": "K2 block (fp32, S=496)", "k3_block": "K3 block (bf16, S=1536)",
+            "k4": "K4 (bf16, B=16, S=500)", "k7": "K7 (bf16, B=16, S=500)",
+            "k5": "K5 (bf16, B=4, S=1500 → 1536)",
             "log_mel_1000": "K8 log-mel (1000 frames)", "log_mel_3000": "K8 log-mel (3000 frames)"}
     for k, (km, pm) in times.items():
-        print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms  (B={b}; {label})")
+        print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms  ({label})")
     return times
 
 
@@ -462,7 +704,13 @@ def run() -> dict:
     check(cos30 >= 0.999, "30-s bf16 path disagrees with fp32")
     del engine30_32
 
-    print("phase 9: timings")
+    errs.update(attention_phase())
+    path["K4"], train_bf16 = train_bf16_phase(cfg, rs)
+    path["K7"] = path["K4"]
+    _, train_fp32 = train_fp32_phase(cfg, rs)
+    path["K5"], train_30 = train_30s_phase(cfg, rs)
+
+    print("phase 13: timings")
     bench = [(0.1 * rs.randn(10 * 16000)).astype(np.float32) for _ in range(4 * BATCH)]
     rates = clips_per_s(engine, bench)
     print(f"  embed_audio {rates[0]:.1f} / {rates[1]:.1f} clips/s (10-s clips, bf16, "
@@ -474,8 +722,15 @@ def run() -> dict:
     times = timing_phase(blk, label)
     times["k8"] = times["log_mel_1000"]
 
-    err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K8": "K8"}
-    time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K8": "k8"}
+    print(f"  bf16 10-s training step {train_bf16['median_step_ms']:.2f} ms/step (median of 6, "
+          f"B={TRAIN_BATCH}), peak {train_bf16['peak_gib']:.2f} GiB ({label})")
+    print(f"  fp32 10-s training step {np.median(train_fp32['step_ms']):.2f} ms/step (median of 3, "
+          f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
+          f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
+    err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K4": "K4", "K5": "K5", "K7": "K7",
+               "K8": "K8"}
+    time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K4": "k4", "K5": "k5",
+                "K7": "k7", "K8": "k8"}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": path[name][key], "max_abs_err": errs[err_key[name]],
                 "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1]}
@@ -485,7 +740,9 @@ def run() -> dict:
                              "ms": times[k][0], "plain_ms": times[k][1]}
                          for k, src in K1_PARTS.items()},
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
-            "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30}, "gpu": label}
+            "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30},
+            "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},
+            "gpu": label}
 
 
 def main() -> int:

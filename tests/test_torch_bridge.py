@@ -36,15 +36,14 @@ def jax_tiny_tree():
 
 def test_bridge_round_trip_caco_tiny(jax_tiny_tree):
     """Every leaf equal (exactly), every parameter filled, counts match
-    (the decoder subtree is accepted and left out)."""
+    (the decoder subtree included)."""
     model = params_from_jax(jax_tiny_tree, tcfg.caco_tiny(vocab_size=300))
     state = model.state_dict()
     flat = jax_state_dict(jax_tiny_tree)
     assert set(state) == set(flat)
     for name, leaf in flat.items():
         np.testing.assert_array_equal(state[name].numpy(), leaf, err_msg=name)
-    no_decoder = {k: v for k, v in jax_tiny_tree.items() if k != "decoder"}
-    assert sum(p.numel() for p in model.parameters()) == jax_count_params(no_decoder)
+    assert sum(p.numel() for p in model.parameters()) == jax_count_params(jax_tiny_tree)
     # unstacking: layer i of a stacked leaf is blocks.{i}
     stacked = jax_tiny_tree["audio"]["blocks"]["attn"]["qkv"]["w"]
     np.testing.assert_array_equal(model.audio.blocks[1].attn.qkv.w.detach().numpy(), stacked[1])

@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card (K1's chain, K2/K3's block chain, K8's
-log-mel), against their plain PyTorch versions.
+"""The CUDA kernels on the card (K1's chain, K2/K3's block chain, K4, K5,
+K4's backward K7, K8's log-mel), against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -13,7 +13,10 @@ Tolerances: fp32 5e-4 absolute (summation order through the layer), bf16
 fp32 sums taken in another order, compounded over the layer's seven
 stages); the same bounds chip_smoke.py states.  K8: 1e-4 absolute on the
 log-mel (fp32 sums in another order; the log scales a mel error δ by
-0.2/(mel + 1e-5)).
+0.2/(mel + 1e-5)).  K4, K5: bf16 2e-2 + 1e-2·|x|, fp32 1e-4 + 1e-4·|x| (one
+kernel: one bf16 rounding after fp32 sums in another order).  K7: bf16
+3e-2 + 2e-2·|x| (P and dS are rounded to bf16 before their products, so a
+rounding step of either moves a gradient by one more), fp32 1e-4 + 1e-4·|x|.
 """
 
 import numpy as np
@@ -27,6 +30,8 @@ from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 
 TOL = {"float32": (5e-4, 5e-4), "bfloat16": (6e-2, 3e-2)}
+TOL_K45 = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-2)}
+TOL_K7 = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 2e-2)}
 
 
 @pytest.fixture
@@ -57,7 +62,8 @@ def test_launch_counters_count_kernel_launches(cuda):
         assert all(v == 0 for v in kern.LAUNCHES.values())
         ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6)
         torch.cuda.synchronize()
-    assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1, "log_mel": 0}
+    assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1, "k4": 0, "k5": 0,
+                             "k7": 0, "log_mel": 0}
     assert ea.LAYER_LAUNCHES["k1_layer"] == 1
 
 
@@ -153,3 +159,85 @@ def test_log_mel_kernel_matches_plain(cuda, seconds):
     assert kern.LAUNCHES["log_mel"] == 1
     assert got.shape == (3, frames, 128) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-4)
+
+
+def _qkv(b, s, d, lengths, dtype, seed, scale=1.5):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = (scale * torch.randn(b, s, 3 * d, generator=gen)).to(dtype)
+    mask = (torch.arange(s)[None, :] < torch.tensor(lengths)[:, None]).to(torch.int32)
+    return qkv, mask, gen
+
+
+def _check(got, want, tol):
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,heads,causal", [("bfloat16", 500, 8, False),
+                                                  ("float32", 500, 8, False),
+                                                  ("bfloat16", 100, 12, True),
+                                                  ("float32", 100, 12, True)])
+def test_k4_matches_plain(cuda, dtype, s, heads, causal):
+    """The audio shape (H = 8, Dh = 96, S = 500) and the causal text shape
+    (H = 12, Dh = 64, S = 100); padded keys and an all-masked clip (0)."""
+    td = getattr(torch, dtype)
+    qkv, mask, _ = _qkv(3, s, 768, [s, s // 3, 0], td, 5)
+    kern.reset_launches()
+    got = kern.attention_k4(qkv.to(cuda), mask.to(cuda), heads, causal)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k4"] == 1 and kern.LAUNCHES["attention"] == 0
+    _check(got, kern.attention_plain(qkv, mask, heads, causal), TOL_K45[dtype])
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k5_matches_plain_over_the_padded_row(cuda):
+    """S = 1500 padded to 1536 inside (bf16 at caco_base width); the padded
+    query rows are sliced away."""
+    s = 1500
+    gen = torch.Generator().manual_seed(6)
+    q = torch.randn(2, s, 768, generator=gen).bfloat16()
+    kv = torch.randn(2, s, 1536, generator=gen).bfloat16()
+    mask = (torch.arange(s)[None, :] < torch.tensor([s, 400])[:, None]).to(torch.int32)
+    kern.reset_launches()
+    got = ea.encoder_attention_blocked(q.to(cuda), kv.to(cuda), mask.to(cuda), 8)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k5"] == 1 and got.shape == (2, s, 768)
+    _check(got, ea.encoder_attention_blocked_plain(q, kv, mask, 8), TOL_K45["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,heads,causal", [("bfloat16", 500, 8, False),
+                                                  ("bfloat16", 100, 12, True),
+                                                  ("float32", 100, 8, False),
+                                                  ("float32", 100, 12, True)])
+def test_k7_matches_plain(cuda, dtype, s, heads, causal):
+    """d qkv for a random output gradient; the all-masked clip's gradients
+    are finite and exactly 0."""
+    td = getattr(torch, dtype)
+    qkv, mask, gen = _qkv(3, s, 768, [s, s // 3, 0], td, 7)
+    g = torch.randn(3, s, 768, generator=gen).to(td)
+    kern.reset_launches()
+    got = kern.attention_bwd(qkv.to(cuda), mask.to(cuda), g.to(cuda), heads, causal)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k7"] == 1
+    _check(got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), TOL_K7[dtype])
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k4_backward_is_k7_only_where_jax_runs_it(cuda, dtype):
+    """At S = 500 the bf16 backward is K7 and the fp32 one autograd of the
+    plain `xla_attention` (`bwd_fits_vmem` is false), as in JAX."""
+    td = getattr(torch, dtype)
+    qkv, mask, gen = _qkv(2, 500, 768, [500, 120], td, 8)
+    x = qkv.to(cuda).requires_grad_()
+    kern.reset_launches()
+    ea.encoder_attention(x, mask.to(cuda), 8).sum().backward()
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k4"] == 1
+    assert kern.LAUNCHES["k7"] == (1 if dtype == "bfloat16" else 0)
+    assert torch.isfinite(x.grad).all()

@@ -87,9 +87,19 @@ def test_serving_routes():
 
 @pytest.mark.parametrize("route", ["k4", "k5", "k6"])
 def test_unported_routes_raise(route):
+    """K6 is not ported and raises.  The "k4" and "k5" routes are ported
+    since: they run the unfused block, whose attention takes K4 or K5 by
+    its plan (here one-shot: K4)."""
     _, blk = _block_params(np.random.RandomState(0), 32, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 2"):
-        encoder_layer(blk, torch.zeros(1, 8, 32), torch.ones(1, 8), 2, route, torch.float32)
+    x, mask = torch.randn(1, 8, 32), torch.ones(1, 8)
+    if route == "k6":
+        with pytest.raises(NotImplementedError, match="K6"):
+            encoder_layer(blk, x, mask, 2, route, torch.float32)
+        return
+    with torch.no_grad():
+        got = encoder_layer(blk, x, mask, 2, route, torch.float32)
+        want = encoder_layer(blk, x, mask, 2, "einsum", torch.float32)
+    assert torch.equal(got, want)
 
 
 def _inputs(rs, b, s, d, lengths):
@@ -171,9 +181,10 @@ def test_k1_chain_at_padded_length_matches_pallas_k3_prime(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_einsum_attention_matches_jax_flash_mask_path(dtype):
-    """multi_head_attention with a key mask and no kernel: JAX declines its
-    kernels when attention dropout is requested (here without a key, so no
-    dropout is applied) and builds the −1e30 bias from the mask."""
+    """multi_head_attention with a key mask and no kernel: JAX, and the port
+    with it, decline their kernels when attention dropout is requested
+    (here without a key or generator, so no dropout is applied) and build
+    the −1e30 bias from the mask."""
     from cacophony_tpu_torch.ops.attention import Attention
 
     rs = np.random.RandomState(3)
@@ -194,7 +205,7 @@ def test_einsum_attention_matches_jax_flash_mask_path(dtype):
                                         flash_mask=jnp.asarray(mask), dropout_rate=0.5)
     with torch.no_grad():
         got = multi_head_attention(p, torch.from_numpy(x).to(td), num_heads=h, dtype=td,
-                                   flash_mask=torch.from_numpy(mask))
+                                   flash_mask=torch.from_numpy(mask), dropout_rate=0.5)
     tol = 5e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=tol)
 
