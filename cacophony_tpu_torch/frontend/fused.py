@@ -1,19 +1,27 @@
-"""K8, the fused frontend: waveform → log-mel in one kernel
+"""K8 and K8′, the fused frontend: waveform → log-mel in one kernel
 (cacophony_tpu/frontend/fused.py).
 
 Audio arrives as hop-major rows (B, R, hop), a free reshape of the
 zero-padded buffer (`buffer_to_rows`).  The kernel (csrc/log_mel.cu,
-replacing the Pallas `fused_log_mel:153` with fast_dft=False) runs the
-windowed DFT against the lane-padded re|im matrix, the magnitude, the mel
-product and the log, and writes only the (B, F, num_mels) log-mel.  Both
-products are full fp32.  Its output equals the unfused chain
-(frontend/dsp.py) up to the order of fp32 sums, so choosing it changes no
-result.  The patchify transpose and the masks stay in PyTorch, as they
-stay in XLA in the JAX package.
+replacing the Pallas `fused_log_mel:153`) runs the windowed DFT against
+the lane-padded re|im matrix, the magnitude, the mel product and the log,
+and writes only the (B, F, num_mels) log-mel.
 
-The JAX package runs the kernel only when one clip fits the TPU's VMEM
-(`fits_vmem`: 10-s buffers, not 30-s ones).  The Hopper kernel tiles by
-frame, so it has no such limit and runs at every buffer length.
+- K8 (fast_dft=False): both products full fp32.  Its output equals the
+  unfused chain (frontend/dsp.py) up to the order of fp32 sums, so
+  choosing it changes no result.
+- K8′ (fast_dft=True, JAX's `_kernel:135-141`): the DFT as three bf16
+  products with fp32 accumulation — audio and matrix each split into a
+  bf16 pair hi + lo, the sum hi·hi + hi·lo + lo·hi, lo·lo dropped (about
+  16 mantissa bits) — on the tensor cores; the mel product stays fp32.
+
+The patchify transpose and the masks stay in PyTorch, as they stay in XLA
+in the JAX package.  The JAX package's `fused_batch_wav_to_patches` runs
+its kernel only where one clip fits the TPU's VMEM (`fits_vmem`: 10-s
+buffers, not 30-s ones) and the exact XLA chain elsewhere, so there
+`fast_dft` has no effect; the port keeps that rule and runs K8 there.
+K8's Hopper kernel tiles by frame and runs at every buffer length, as
+does `fused_log_mel` called directly, in either form.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from cacophony_tpu_torch.configs import FrontendConfig, PatchConfig
 from cacophony_tpu_torch.frontend.dsp import _windowed_dft_matrices, linear_to_mel_matrix
 from cacophony_tpu_torch.frontend.patchify import patchify_spectrogram
 from cacophony_tpu_torch.ops import _kernels as kern
+from cacophony_tpu_torch.ops import encoder_attention as _enc_attn
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,6 +66,29 @@ def _device_matrices(front: FrontendConfig, device: torch.device):
     return torch.from_numpy(c).to(device), torch.from_numpy(mel).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def _device_split_matrices(front: FrontendConfig, device: torch.device):
+    """The padded DFT matrix as a bf16 pair (hi, lo) with hi + lo ≈ c to
+    ~16 mantissa bits (`_split_bf16`, fused.py:69-73: both rounded to
+    nearest even), on `device`, copied once."""
+    c = torch.from_numpy(_padded_matrices(front)[0])
+    hi = c.to(torch.bfloat16)
+    lo = (c - hi.float()).to(torch.bfloat16)
+    return hi.to(device), lo.to(device)
+
+
+def fits_vmem(num_frames: int, front: FrontendConfig) -> bool:
+    """The JAX package's rule for running its kernel at all (fused.py:88):
+    one clip's rows, fp32 re|im accumulator, magnitude and log-mel within
+    the TPU's VMEM budget — 10-s buffers, not 30-s ones.  Here it decides
+    only whether `fast_dft` takes effect."""
+    rows = audio_rows_for(num_frames, front)
+    nbins_pad = _round_up(front.num_spectrogram_bins, 128)
+    blocks = rows * front.hop_length * 4 + num_frames * front.num_mels * 4
+    scratch = num_frames * 2 * nbins_pad * 4 * 2
+    return 2 * blocks + scratch <= _enc_attn.VMEM_BUDGET_BYTES
+
+
 def audio_rows_for(num_frames: int, front: FrontendConfig) -> int:
     """Rows of the (R, hop) hop-major layout: num_frames + ⌈win / hop⌉."""
     return num_frames + -(-front.window_length // front.hop_length)
@@ -72,29 +104,41 @@ def buffer_to_rows(bufs: torch.Tensor, num_frames: int, front: FrontendConfig) -
 
 
 def fused_log_mel_plain(audio_rows: torch.Tensor, front: FrontendConfig,
-                        num_frames: int) -> torch.Tensor:
+                        num_frames: int, *, fast_dft: bool = False) -> torch.Tensor:
     """The kernel's chain in torch fp32, in the Pallas body's segmented form:
-    frame f covers rows f..f+n_seg-1, so the DFT is a sum of n_seg products."""
+    frame f covers rows f..f+n_seg-1, so the DFT is a sum of n_seg products.
+    fast_dft: each segment's product is the three exact products of the bf16
+    halves (upcast, fp32 sums), added in JAX's order hi·hi, hi·lo, lo·hi."""
     hop, win = front.hop_length, front.window_length
     c, mel = _device_matrices(front, audio_rows.device)
     nbp = _padded_matrices(front)[2]
     a = audio_rows.float()
+    if fast_dft:
+        c_hi, c_lo = (t.float() for t in _device_split_matrices(front, a.device))
+        a_hi = a.to(torch.bfloat16).float()
+        a_lo = (a - a_hi).to(torch.bfloat16).float()
     acc = 0.0
     for k in range(-(-win // hop)):
         lo, hi = k * hop, min((k + 1) * hop, win)
-        acc = acc + a[:, k:num_frames + k, :hi - lo] @ c[lo:hi]
+        seg = (slice(None), slice(k, num_frames + k), slice(0, hi - lo))
+        if fast_dft:
+            acc = acc + a_hi[seg] @ c_hi[lo:hi]
+            acc = acc + a_hi[seg] @ c_lo[lo:hi]
+            acc = acc + a_lo[seg] @ c_hi[lo:hi]
+        else:
+            acc = acc + a[seg] @ c[lo:hi]
     re, im = acc[..., :nbp], acc[..., nbp:]
     m = torch.sqrt(re * re + im * im) @ mel
     return torch.log(m + front.log_offset) * front.log_scale + front.log_bias
 
 
 def fused_log_mel(audio_rows: torch.Tensor, front: FrontendConfig,
-                  num_frames: int) -> torch.Tensor:
+                  num_frames: int, *, fast_dft: bool = False) -> torch.Tensor:
     """(B, R, hop) fp32 rows → log-mel (B, num_frames, num_mels) fp32
-    (csrc/log_mel.cu).  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    (csrc/log_mel.cu): K8, or K8′ with fast_dft.  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel or raises."""
     if kern._device_kind(audio_rows) == "cpu":
-        return fused_log_mel_plain(audio_rows, front, num_frames)
+        return fused_log_mel_plain(audio_rows, front, num_frames, fast_dft=fast_dft)
     kern._need(audio_rows.dtype == torch.float32 and audio_rows.is_contiguous()
                and audio_rows.dim() == 3 and audio_rows.shape[2] == front.hop_length,
                "rows must be contiguous fp32 (B, R, hop)")
@@ -106,10 +150,17 @@ def fused_log_mel(audio_rows: torch.Tensor, front: FrontendConfig,
     nbp = _padded_matrices(front)[2]
     out = torch.empty(b, num_frames, front.num_mels, dtype=torch.float32,
                       device=audio_rows.device)
-    kern._launch("log_mel", audio_rows.device, audio_rows.data_ptr(), c.data_ptr(),
-                 mel.data_ptr(), out.data_ptr(), b, rows, hop, front.window_length, num_frames,
-                 nbp, front.num_spectrogram_bins, front.num_mels, float(front.log_offset),
-                 float(front.log_scale), float(front.log_bias))
+    shape = (b, rows, hop, front.window_length, num_frames, nbp, front.num_spectrogram_bins,
+             front.num_mels, float(front.log_offset), float(front.log_scale),
+             float(front.log_bias))
+    if fast_dft:
+        kern._need(hop % 8 == 0, f"hop {hop} (K8′ takes a multiple of 8)")
+        c_hi, c_lo = _device_split_matrices(front, audio_rows.device)
+        kern._launch("log_mel_fast", audio_rows.device, audio_rows.data_ptr(), c_hi.data_ptr(),
+                     c_lo.data_ptr(), mel.data_ptr(), out.data_ptr(), *shape)
+    else:
+        kern._launch("log_mel", audio_rows.device, audio_rows.data_ptr(), c.data_ptr(),
+                     mel.data_ptr(), out.data_ptr(), *shape)
     return out
 
 
@@ -128,11 +179,15 @@ def patch_index_arrays(lens: torch.Tensor, front: FrontendConfig,
 
 
 def fused_batch_wav_to_patches(bufs: torch.Tensor, lens: torch.Tensor, front: FrontendConfig,
-                               patch: PatchConfig) -> Dict[str, torch.Tensor]:
+                               patch: PatchConfig, *,
+                               fast_dft: bool = False) -> Dict[str, torch.Tensor]:
     """(B, samples) zero-padded buffers + (B,) lengths → the patch dict of
-    `wav_to_patches`, with the log-mel from K8.  Patches stay fp32 (the
-    encoder casts them, which equals casting before the patchify)."""
+    `wav_to_patches`, with the log-mel from K8, or from K8′ with fast_dft
+    where the JAX package runs its kernel (`fits_vmem`; elsewhere JAX takes
+    its exact chain, and the port K8).  Patches stay fp32 (the encoder
+    casts them, which equals casting before the patchify)."""
     num_frames = -(-bufs.shape[1] // front.hop_length)
-    logmel = fused_log_mel(buffer_to_rows(bufs, num_frames, front), front, num_frames)
+    logmel = fused_log_mel(buffer_to_rows(bufs, num_frames, front), front, num_frames,
+                           fast_dft=fast_dft and fits_vmem(num_frames, front))
     valid_frames = -(-lens.to(torch.int32) // front.hop_length)
     return patchify_spectrogram(logmel, valid_frames, patch)

@@ -8,14 +8,20 @@ decided by `ops.encoder_attention.layer_route` from the sequence length,
 the widths and the compute dtype:
 
 - "k1": the whole layer through K1 (`fused_layer`);
-- "k2" / "k3": the block half through K2 / K3 (`fused_block`), then the MLP
+- "k2" / "k3": the block half through K2 / K3 (`fused_block_attention`), then the MLP
   outside the kernel with XLA's numerics: dense rounds `x @ w` to the
   compute dtype before adding the bias cast to it, silu runs in the
   compute dtype, and the residual is added in it;
+- "k6": LN1 → QKV → attention through K6 (`fused_ln_attention`), then the
+  o-projection, the residual, LN2 and the MLP outside the kernel (JAX's
+  narrow fallback, `_vit_block`:175-203);
 - "einsum", "k4", "k5": the unfused block `vit_block` — LayerNorm, then
   `ops.attention.multi_head_attention`, which itself takes K4 (one-shot
   plan), K5 (blocked plan) or the einsum attention with the −1e30 key bias
   (no plan), the residual, LN2, the MLP.
+
+Every route is differentiable, as in JAX, where the fused kernels are
+`custom_vjp`s whose backward rematerialises the layer in XLA.
 
 In training (`train=True`) every layer is `vit_block`, as in JAX, where the
 fused routes are off in training (`FUSED_IN_TRAIN = False`, audio.py:55):
@@ -124,14 +130,26 @@ def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads:
     if route == "k1":
         return ea.fused_layer(blk, x, mask, num_heads, LN_EPS)
     if route in ("k2", "k3"):
-        y, ln2y = ea.fused_block(blk, x, mask, num_heads, LN_EPS, blocked=route == "k3")
+        variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK) if route == "k3" else ("one_shot",)
+        y, ln2y = ea.fused_block_attention(blk, x, mask, num_heads, LN_EPS, variant)
         return y + _mlp(blk.mlp, ln2y, dtype)
     if route in ("einsum", "k4", "k5"):
         return vit_block(blk, x, mask, num_heads, dtype)
-    # "k6": no configuration reaches it at caco_base or caco_tiny widths
-    raise NotImplementedError(
-        f"encoder layer route {route!r} (the JAX package's K6 kernel) is not ported yet: "
-        f"ROADMAP queue A, the next kernel slice")
+    if route == "k6":
+        h = ea.fused_ln_attention(blk.ln1, blk.attn.qkv, x, mask, num_heads, LN_EPS)
+        x = x + dense(blk.attn.o, h, dtype)
+        return x + _mlp(blk.mlp, layer_norm(blk.ln2, x, LN_EPS), dtype)
+    raise ValueError(f"unknown encoder layer route {route!r}")
+
+
+def audio_input_embedding(p: AudioEncoder, cfg: AudioEncoderConfig, patches: torch.Tensor,
+                          time_inds: torch.Tensor, freq_inds: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """The first layer's input: the patch projection plus the sin-cos time
+    and learned frequency embeddings, in `dtype`."""
+    x = dense(p.patch_proj, patches.to(dtype), dtype)
+    x = x + sincos_time_embedding(time_inds, cfg.hidden_size).to(x.dtype)
+    return x + p.freq_pos_embed.to(x.dtype)[freq_inds.long()]
 
 
 def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
@@ -144,9 +162,7 @@ def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
     """→ hidden states (B, S, hidden) in `dtype`.  Reference: mae.py:111-139.
     Inference takes `layer_route`'s route per layer; training (`train=True`,
     dropout masks from `generator`) runs `vit_block` on every layer."""
-    x = dense(p.patch_proj, patches.to(dtype), dtype)
-    x = x + sincos_time_embedding(time_inds, cfg.hidden_size).to(x.dtype)
-    x = x + p.freq_pos_embed.to(x.dtype)[freq_inds.long()]
+    x = audio_input_embedding(p, cfg, patches, time_inds, freq_inds, dtype)
     route = None if train else ea.layer_route(x.shape[1], cfg.hidden_size,
                                               cfg.intermediate_size, dtype)[0]
     for blk in p.blocks:

@@ -13,7 +13,7 @@ Each kernel has three things:
 - a plain PyTorch version (`*_plain`) with the kernel's numerics, on any
   device: the CPU tests run it, and chip_smoke.py holds the kernel to it;
 - a wrapper (`layer_norm`, `gemm`, `attention`, `attention_k4`,
-  `attention_k5`, `attention_bwd` here; `log_mel` in frontend/fused.py)
+  `attention_k5`, `attention_bwd` here; `fused_log_mel` in frontend/fused.py)
   that runs the plain version for a tensor on the CPU
   and launches the kernel for a CUDA tensor — it checks device, dtype,
   shape and contiguity and raises on anything the kernel does not take; it
@@ -45,14 +45,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD = range(4)
 
 # One count per wrapper: "attention" is the attention inside the K1/K2/K3
-# chains, "k4" and "k5" the stand-alone attention kernels, "k7" K4's
-# backward (one count per call, which launches its two CUDA kernels).
+# (and K3′/K6) chains, "k4" and "k5" the stand-alone attention kernels, "k7"
+# K4's backward (one count per call, which launches its two CUDA kernels),
+# "log_mel" K8 and "log_mel_fast" its bf16×3 form K8′.
 LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "k4": 0, "k5": 0,
-                            "k7": 0, "log_mel": 0}
+                            "k7": 0, "log_mel": 0, "log_mel_fast": 0}
 # launch-count key → C entry point
 _SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "caco_attention",
             "k4": "caco_attention", "k5": "caco_attention", "k7": "caco_attention_bwd",
-            "log_mel": "k8_log_mel"}
+            "log_mel": "k8_log_mel", "log_mel_fast": "k8_log_mel_fast"}
 
 _VSCALE = 2.0 ** -24
 _SOFTMAX_CLAMP = 80.0
@@ -141,6 +142,7 @@ def load_library() -> ctypes.CDLL:
     lib.caco_attention.argtypes = [i, p, p, p, i, i, p, p, i, i, i, i, f, i, p]
     lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
+    lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
     for sym in set(_SYMBOLS.values()):
         getattr(lib, sym).restype = ctypes.c_int
     _lib = lib

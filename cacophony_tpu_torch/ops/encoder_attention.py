@@ -42,10 +42,23 @@ epilogues, (c) a flash-style masked attention.  The attention is already
 tiled over queries, which is all that K3's "QKV once per row into scratch,
 then per q-block" becomes here.
 
-`fused_layer` / `fused_block` run the kernels on a CUDA tensor and their
-plain PyTorch versions on a CPU tensor; the `*_plain` functions run the
-plain versions on any device (the reference chip_smoke.py holds the
-kernels to).
+**K3′** (the blocked kernel with with_mlp=True) is the K1 chain over the
+padded row, its MLP epilogues on the padded rows (`_mlp_tail` per q-block
+is the same math row by row).  **K6** (`_fused_ln_kernel`, :391) is the
+first three links of the chain: LN1 → QKV → attention, the output before
+the o-projection.
+
+The entry points are JAX's: `fused_layer` (K1, K3′ by its variant),
+`fused_block_attention` (K2, K3) and `fused_ln_attention`
+(K6), with the gates `try_fused_layer`, `try_fused_block_attention` and
+`try_fused_ln_attention`, which decline exactly where JAX's do.  Each runs
+the kernels on a CUDA tensor (or raises) and their plain PyTorch versions
+on a CPU tensor, and each is differentiable as JAX's `custom_vjp` is: the
+backward is autograd of the plain port of `_xla_layer`, `_xla_block` or
+`_xla_ln_attention`, recomputed from the saved inputs, with the textbook
+softmax of `xla_attention` inside (a fully masked row gets uniform weights
+there, not the chain's 0).  The `*_plain` functions run the plain chain on
+any device (the reference chip_smoke.py holds the kernels to).
 
 **K4, K5 and K7** are what training reaches (`multi_head_attention`,
 ops/attention.py, for a one-shot or blocked plan).  `encoder_attention` is
@@ -61,14 +74,15 @@ masked and padded query rows sliced away; its backward is autograd through
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from cacophony_tpu_torch.ops import _kernels as kern
 
-# Chains launched on the card: K1 whole layers, K2 and K3 block halves.
-LAYER_LAUNCHES = {"k1_layer": 0, "k2_block": 0, "k3_block": 0}
+# Chains launched on the card: K1 and K3′ whole layers, K2 and K3 block
+# halves, K6 (LN1 → QKV → attention).
+LAYER_LAUNCHES = {"k1_layer": 0, "k3_layer": 0, "k2_block": 0, "k3_block": 0, "k6_attn": 0}
 
 # The JAX package's constants for its route decision (encoder_attention.py).
 VMEM_BUDGET_BYTES = 15 * 1024 * 1024
@@ -137,6 +151,30 @@ def fused_ln_fits(seq: int, d_model: int, dtype: torch.dtype) -> bool:
     return 2 * blocks + scratch <= VMEM_BUDGET_BYTES
 
 
+def fused_variant(seq: int, d_model: int, dtype: torch.dtype, intermediate: int = 0,
+                  allow_blocked: bool = True):
+    """The variant JAX's `try_fused_block_attention` (intermediate 0, :897)
+    or `try_fused_layer` (:978) runs at this shape — ("one_shot",) or
+    ("blocked", FUSED_BLOCKED_Q_BLOCK) — or None where it declines."""
+    plan = kernel_plan(seq, d_model, dtype)
+    if plan is None:
+        return None
+    if plan[0] == "one_shot":
+        return ("one_shot",) if fused_block_fits(seq, d_model, dtype, intermediate) else None
+    qb = FUSED_BLOCKED_Q_BLOCK
+    s_pad = -(-seq // qb) * qb
+    if allow_blocked and fused_block_blocked_fits(s_pad, qb, d_model, dtype, intermediate):
+        return "blocked", qb
+    return None
+
+
+def fused_ln_attention_applies(seq: int, d_model: int, dtype: torch.dtype) -> bool:
+    """Whether JAX's `try_fused_ln_attention` (:1079) runs K6: a one-shot
+    plan within `fused_ln_fits`."""
+    plan = kernel_plan(seq, d_model, dtype)
+    return plan is not None and plan[0] == "one_shot" and fused_ln_fits(seq, d_model, dtype)
+
+
 def layer_route(seq: int, d_model: int, intermediate: int,
                 dtype: torch.dtype) -> Tuple[str, int]:
     """→ (route, padded_len): which computation the JAX package performs for
@@ -156,19 +194,14 @@ def layer_route(seq: int, d_model: int, intermediate: int,
     plan = kernel_plan(seq, d_model, dtype)
     if plan is None:
         return "einsum", seq
-    if plan[0] == "one_shot":
-        if fused_block_fits(seq, d_model, dtype, intermediate):
-            return "k1", seq
-        if fused_block_fits(seq, d_model, dtype):
-            return "k2", seq
-        if fused_ln_fits(seq, d_model, dtype):
-            return "k6", seq
-        return "k4", seq
-    qb = FUSED_BLOCKED_Q_BLOCK
-    s_pad = -(-seq // qb) * qb
-    if fused_block_blocked_fits(s_pad, qb, d_model, dtype):
-        return "k3", s_pad
-    return "k5", plan[1]
+    if fused_variant(seq, d_model, dtype, intermediate, allow_blocked=False) is not None:
+        return "k1", seq
+    variant = fused_variant(seq, d_model, dtype)
+    if variant is not None:
+        return ("k2", seq) if variant[0] == "one_shot" else ("k3", -(-seq // variant[1]) * variant[1])
+    if fused_ln_attention_applies(seq, d_model, dtype):
+        return "k6", seq
+    return ("k4", seq) if plan[0] == "one_shot" else ("k5", plan[1])
 
 
 def bwd_fits_vmem(seq: int, d_model: int, dtype: torch.dtype) -> bool:
@@ -190,30 +223,54 @@ def preferred_seq_len(seq: int, d_model: int, dtype: torch.dtype) -> int:
 
 # -------------------------------------------------------------- the chains
 
-def _w(dense, dt):
-    return dense.w.to(dt).contiguous()
+# A chain's parameters by their names in ViTBlock (the JAX tree's leaves).
+_LN_QKV = ("ln1.scale", "ln1.bias", "attn.qkv.w", "attn.qkv.b")
+_BLOCK = _LN_QKV + ("attn.o.w", "attn.o.b", "ln2.scale", "ln2.bias")
+_LAYER = _BLOCK + ("mlp.w1.w", "mlp.w1.b", "mlp.w2.w", "mlp.w2.b")
+
+
+def _w(w, dt):
+    return w.to(dt).contiguous()
 
 
 def _b(p):
     return p.to(torch.float32).contiguous()
 
 
-def _block(ops, blk, x, mask, num_heads: int, eps: float):
-    """LN1 → QKV → attention → o-proj + fp32 residual → LN2: (yb, yn)."""
-    dt, attn = x.dtype, blk.attn
-    xn = ops.layer_norm(x, _b(blk.ln1.scale), _b(blk.ln1.bias), eps)
-    qkv = ops.gemm(xn, _w(attn.qkv, dt), _b(attn.qkv.b), kern.EPI_BIAS)
-    att = ops.attention(qkv, mask, num_heads)
-    yb = ops.gemm(att, _w(attn.o, dt), _b(attn.o.b), kern.EPI_BIAS_RESID_F32, x)
-    yn = ops.layer_norm(yb, _b(blk.ln2.scale), _b(blk.ln2.bias), eps)
+def _ln_attention(ops, p, x, mask, num_heads: int, eps: float):
+    """LN1 → QKV → attention: K6, and the first links of K1, K2 and K3."""
+    xn = ops.layer_norm(x, _b(p["ln1.scale"]), _b(p["ln1.bias"]), eps)
+    qkv = ops.gemm(xn, _w(p["attn.qkv.w"], x.dtype), _b(p["attn.qkv.b"]), kern.EPI_BIAS)
+    return ops.attention(qkv, mask, num_heads)
+
+
+def _block(ops, p, x, mask, num_heads: int, eps: float):
+    """… → o-proj + fp32 residual → LN2: (yb, yn)."""
+    att = _ln_attention(ops, p, x, mask, num_heads, eps)
+    yb = ops.gemm(att, _w(p["attn.o.w"], x.dtype), _b(p["attn.o.b"]), kern.EPI_BIAS_RESID_F32, x)
+    yn = ops.layer_norm(yb, _b(p["ln2.scale"]), _b(p["ln2.bias"]), eps)
     return yb, yn
 
 
-def _layer(ops, blk, x, mask, num_heads: int, eps: float):
-    dt, mlp = x.dtype, blk.mlp
-    yb, yn = _block(ops, blk, x, mask, num_heads, eps)
-    h1 = ops.gemm(yn, _w(mlp.w1, dt), _b(mlp.w1.b), kern.EPI_BIAS_SILU)
-    return ops.gemm(h1, _w(mlp.w2, dt), _b(mlp.w2.b), kern.EPI_BIAS_CAST_ADD, yb)
+def _layer(ops, p, x, mask, num_heads: int, eps: float):
+    dt = x.dtype
+    yb, yn = _block(ops, p, x, mask, num_heads, eps)
+    h1 = ops.gemm(yn, _w(p["mlp.w1.w"], dt), _b(p["mlp.w1.b"]), kern.EPI_BIAS_SILU)
+    return ops.gemm(h1, _w(p["mlp.w2.w"], dt), _b(p["mlp.w2.b"]), kern.EPI_BIAS_CAST_ADD, yb)
+
+
+def _padded(chain, q_block: int):
+    """`chain` over the row padded to a multiple of q_block: the padded keys
+    are masked and the padded query rows sliced away (K3, K3′)."""
+    def run(ops, p, x, mask, num_heads, eps):
+        s = x.shape[1]
+        pad = -(-s // q_block) * q_block - s
+        if pad:
+            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        out = chain(ops, p, x, mask, num_heads, eps)
+        return tuple(t[:, :s] for t in out) if isinstance(out, tuple) else out[:, :s]
+    return run
 
 
 def _ops_for(x: torch.Tensor) -> SimpleNamespace:
@@ -224,49 +281,164 @@ def _ops_for(x: torch.Tensor) -> SimpleNamespace:
     return _PLAIN_OPS
 
 
-def fused_layer(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                eps: float) -> torch.Tensor:
-    """K1: next-layer x.  x: (B, S, D) in the compute dtype; mask: (B, S),
-    >0 marks valid keys.  A CUDA tensor runs the CUDA chain or raises; a
-    CPU tensor runs the plain versions."""
+# ------------------------------------ the reference math of the backwards
+
+def _xla_ln_attention(p, x, mask, num_heads: int, eps: float):
+    """`_xla_ln_attention` (encoder_attention.py:1021): LN1 and the QKV
+    product as K6 computes them, then the textbook softmax `xla_attention`."""
+    xn = kern.layer_norm_plain(x, p["ln1.scale"], p["ln1.bias"], eps)
+    qkv = kern.gemm_plain(xn, p["attn.qkv.w"].to(x.dtype), p["attn.qkv.b"], kern.EPI_BIAS)
+    return xla_attention(qkv, mask, num_heads)
+
+
+def _xla_block(p, x, mask, num_heads: int, eps: float):
+    """`_xla_block` (:845): the o-projection is rounded to the compute dtype
+    and added to the residual in it (the kernels add it in fp32)."""
+    out = _xla_ln_attention(p, x, mask, num_heads, eps)
+    y = x + kern.gemm_plain(out, p["attn.o.w"].to(x.dtype), p["attn.o.b"], kern.EPI_BIAS)
+    return y, kern.layer_norm_plain(y, p["ln2.scale"], p["ln2.bias"], eps)
+
+
+def _xla_layer(p, x, mask, num_heads: int, eps: float):
+    """`_xla_layer` (:933): the MLP with silu in the compute dtype."""
+    dt = x.dtype
+    y, ln2 = _xla_block(p, x, mask, num_heads, eps)
+    h = kern.gemm_plain(ln2, p["mlp.w1.w"].to(dt), p["mlp.w1.b"], kern.EPI_BIAS)
+    h = h * torch.sigmoid(h)
+    return y + kern.gemm_plain(h, p["mlp.w2.w"].to(dt), p["mlp.w2.b"], kern.EPI_BIAS)
+
+
+class _FusedChain(torch.autograd.Function):
+    """A fused route: the forward is the chain (its CUDA kernels, or their
+    plain versions on the CPU); the backward is JAX's (`_fused_layer_bwd`
+    :961, `_fused_block_bwd` :880, `_fused_ln_bwd` :1048): autograd of the
+    `_xla_*` reference recomputed from the saved inputs, with the cotangent
+    cast to x's dtype.  The parameters are inputs, so their gradients reach
+    the fp32 leaves through the casts; the mask gets none."""
+
+    @staticmethod
+    def forward(ctx, names, chain, reference, x, mask, *params):
+        ctx.names, ctx.reference = names, reference
+        ctx.save_for_backward(x, mask, *params)
+        return chain(dict(zip(names, params)), x, mask)
+
+    @staticmethod
+    def backward(ctx, *g):
+        x, mask, *params = ctx.saved_tensors
+        need = (ctx.needs_input_grad[3],) + ctx.needs_input_grad[5:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip((x, *params), need)]
+            out = ctx.reference(dict(zip(ctx.names, leaves[1:])), leaves[0], mask)
+            out = out if isinstance(out, tuple) else (out,)
+            grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                                             [gg.to(x.dtype) for gg in g], allow_unused=True))
+        d_x, *d_params = (next(grads) if t.requires_grad else None for t in leaves)
+        return (None, None, None, d_x, None, *d_params)
+
+
+def _fused(counter: str, names, params, chain, reference, x, mask, num_heads: int, eps: float):
+    """Run a fused route as `_FusedChain`: a CUDA tensor runs the CUDA
+    chain (counted as `counter`) or raises; a CPU tensor runs the plain
+    versions."""
     ops = _ops_for(x)
     if ops is _KERNEL_OPS:
-        LAYER_LAUNCHES["k1_layer"] += 1
-    return _layer(ops, blk, x.contiguous(), mask.to(torch.int32).contiguous(), num_heads, eps)
+        LAYER_LAUNCHES[counter] += 1
+    return _FusedChain.apply(names, lambda p, xx, m: chain(ops, p, xx, m, num_heads, eps),
+                             lambda p, xx, m: reference(p, xx, m, num_heads, eps),
+                             x.contiguous(), mask.to(torch.int32).contiguous(), *params)
 
 
-def fused_layer_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                      eps: float) -> torch.Tensor:
-    """K1 through the plain PyTorch versions, on any device."""
-    return _layer(_PLAIN_OPS, blk, x, mask, num_heads, eps)
+def _params(module, names):
+    return [module.get_parameter(n) for n in names]
 
 
-def _padded_block(ops, blk, x, mask, num_heads, eps, blocked: bool):
-    s = x.shape[1]
-    s_pad = -(-s // FUSED_BLOCKED_Q_BLOCK) * FUSED_BLOCKED_Q_BLOCK if blocked else s
-    if s_pad != s:
-        x = torch.nn.functional.pad(x, (0, 0, 0, s_pad - s))
-        mask = torch.nn.functional.pad(mask, (0, s_pad - s))
-    yb, yn = _block(ops, blk, x.contiguous(), mask.to(torch.int32).contiguous(), num_heads, eps)
-    return yb[:, :s], yn[:, :s]
+def _variant_chain(chain, variant):
+    return _padded(chain, variant[1]) if variant[0] == "blocked" else chain
 
 
-def fused_block(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
-                *, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 (blocked=False) or K3 (blocked=True): (y, LN2 y), each (B, S, D)
-    in x's dtype.  K3 pads the row to a multiple of FUSED_BLOCKED_Q_BLOCK
-    with masked keys and slices the padded query rows away.  A CUDA tensor
-    runs the CUDA chain or raises; a CPU tensor runs the plain versions."""
-    ops = _ops_for(x)
-    if ops is _KERNEL_OPS:
-        LAYER_LAUNCHES["k3_block" if blocked else "k2_block"] += 1
-    return _padded_block(ops, blk, x, mask, num_heads, eps, blocked)
+def fused_layer(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                variant=("one_shot",)) -> torch.Tensor:
+    """K1 (variant ("one_shot",)) or K3′ (("blocked", q_block): the chain
+    over the row padded to a multiple of q_block): next-layer x.  x: (B, S,
+    D) in the compute dtype; mask: (B, S), >0 marks valid keys.
+    Differentiable with JAX's backward (`fused_layer`, :945)."""
+    counter = "k3_layer" if variant[0] == "blocked" else "k1_layer"
+    return _fused(counter, _LAYER, _params(blk, _LAYER), _variant_chain(_layer, variant),
+                  _xla_layer, x, mask, num_heads, eps)
 
 
-def fused_block_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
-                      *, blocked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_layer_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                      variant=("one_shot",)) -> torch.Tensor:
+    """K1 / K3′ through the plain PyTorch versions, on any device."""
+    p = dict(zip(_LAYER, _params(blk, _LAYER)))
+    return _variant_chain(_layer, variant)(_PLAIN_OPS, p, x, mask, num_heads, eps)
+
+
+def fused_block_attention(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                          variant) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (variant ("one_shot",)) or K3 (("blocked", q_block): the chain
+    over the row padded to a multiple of q_block): (y, LN2 y), each (B, S,
+    D) in x's dtype.  Differentiable with JAX's backward
+    (`fused_block_attention`, :862)."""
+    counter = "k3_block" if variant[0] == "blocked" else "k2_block"
+    return _fused(counter, _BLOCK, _params(blk, _BLOCK), _variant_chain(_block, variant),
+                  _xla_block, x, mask, num_heads, eps)
+
+
+def fused_block_attention_plain(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                                eps: float, variant) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 / K3 through the plain PyTorch versions, on any device."""
-    return _padded_block(_PLAIN_OPS, blk, x, mask, num_heads, eps, blocked)
+    p = dict(zip(_BLOCK, _params(blk, _BLOCK)))
+    return _variant_chain(_block, variant)(_PLAIN_OPS, p, x, mask, num_heads, eps)
+
+
+def fused_ln_attention(ln, qkv, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                       eps: float) -> torch.Tensor:
+    """K6 (`_pallas_fused_ln`, :411): LN(x) → x·Wqkv + b → attention, the
+    output before the o-projection, (B, S, D) in x's dtype.  `ln` is a
+    LayerNorm, `qkv` the fused QKV Dense.  Differentiable with JAX's
+    backward (`fused_ln_attention`, :1035)."""
+    return _fused("k6_attn", _LN_QKV, [ln.scale, ln.bias, qkv.w, qkv.b], _ln_attention,
+                  _xla_ln_attention, x, mask, num_heads, eps)
+
+
+def fused_ln_attention_plain(ln, qkv, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                             eps: float) -> torch.Tensor:
+    """K6 through the plain PyTorch versions, on any device."""
+    p = dict(zip(_LN_QKV, (ln.scale, ln.bias, qkv.w, qkv.b)))
+    return _ln_attention(_PLAIN_OPS, p, x, mask, num_heads, eps)
+
+
+# ------------------------------------------------------------------- gates
+
+def try_fused_layer(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int, eps: float,
+                    dtype: Optional[torch.dtype] = None, allow_blocked: bool = False):
+    """`try_fused_layer` (:978): `fused_layer` in `dtype` (default x's), or
+    None where JAX's returns None — no kernel plan, the whole-layer working
+    set over JAX's budget, or a blocked plan without allow_blocked."""
+    dt = x.dtype if dtype is None else dtype
+    variant = fused_variant(x.shape[1], x.shape[2], dt, blk.mlp.w1.w.shape[1], allow_blocked)
+    return None if variant is None else fused_layer(blk, x.to(dt), mask, num_heads, eps, variant)
+
+
+def try_fused_block_attention(blk, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                              eps: float, dtype: Optional[torch.dtype] = None):
+    """`try_fused_block_attention` (:897): `fused_block_attention`, or None
+    where JAX's returns None."""
+    dt = x.dtype if dtype is None else dtype
+    variant = fused_variant(x.shape[1], x.shape[2], dt)
+    return (None if variant is None
+            else fused_block_attention(blk, x.to(dt), mask, num_heads, eps, variant))
+
+
+def try_fused_ln_attention(ln, attn, x: torch.Tensor, mask: torch.Tensor, num_heads: int,
+                           eps: float, dtype: Optional[torch.dtype] = None):
+    """`try_fused_ln_attention` (:1079): `fused_ln_attention` (attn is the
+    Attention holding `qkv`), or None where JAX's returns None."""
+    dt = x.dtype if dtype is None else dtype
+    if not fused_ln_attention_applies(x.shape[1], x.shape[2], dt):
+        return None
+    return fused_ln_attention(ln, attn.qkv, x.to(dt), mask, num_heads, eps)
 
 
 # ------------------------------------------- K4, K5 and K4's backward K7

@@ -9,11 +9,15 @@ Phases (any failure exits non-zero and prints no final `ok` line):
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
    plain PyTorch version on the card: B=8, S=496, D=768, H=8, I=3072, some
    padded keys and one all-masked clip, bf16 and fp32;
-3. K2 and K3 (`fused_block`, the chain up to LN2) against the plain
+3. K2 and K3 (`fused_block_attention`, the chain up to LN2) against the plain
    version: B=8, K2 at S=496 in fp32, K3 at S=1496 padded to 1536 inside
    in bf16 and fp32, mixed lengths and a clip with no valid patch;
-4. K8 (the fused log-mel) against the plain version: B=8, 1000 and 3000
-   frames, with a quiet and a silent clip;
+3b. K6 (`fused_ln_attention`: LN1 → QKV → attention) at S=496 and K3′
+   (`fused_layer` with the blocked variant: the whole layer at S=1496
+   padded to 1536 inside) against the plain chain, bf16, B=8;
+4. K8 and K8′ (the fused log-mel, fp32 and bf16×3 DFT) against their plain
+   versions, and K8′ against K8 within 2e-4: B=8, 1000 and 3000 frames,
+   with a quiet and a silent clip;
 5. caco_base() with random weights from seed 0, a bf16 10-s CacoEngine on
    cuda: embed_audio on 70 clips of 3-10 s (the last bucket is mostly
    padding), embed_texts, score; K1 launched 12 times per bucket;
@@ -26,6 +30,17 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    with K3 launched 12 times per bucket and K1 none, embed_audio_long on
    clips of 45-75 s; against an fp32 30-s engine (no kernel: the einsum
    route) at cosine >= 0.999;
+8b. the paths of K6, K3′ and K8′ at caco_base in bf16, through their own
+   entry points: a 12-layer 10-s encoder (B=32, S=496) with every layer on
+   route "k6" (K6 12 times, no K1; cosine >= 0.999 against the K1 route),
+   a 12-layer 30-s encoder (B=8, 1536 patches) through
+   `try_fused_layer(allow_blocked=True)` (K3′ 12 times, no K3; cosine >=
+   0.999 against the K3 route), `fused_batch_wav_to_patches(fast_dft=True)`
+   on 10-s buffers (K8′ once) and on 30-s ones (K8′ none: JAX's exact
+   fallback, K8 once);
+8c. gradients through the inference encoder: bf16 10 s at B=8 (K1 12
+   times in the forward; every block parameter's gradient present and
+   finite), fp32 at B=2 (K2 route) against the CPU (relative L2 <= 1e-4);
 9. K4, K5 and K7 against their plain versions: K4 at B=8, S=500, H=8,
    Dh=96 in bf16 and fp32 and causal at H=12, Dh=64, S=100, padded keys
    and an all-masked clip; K5 at S=1500 padded to 1536 in bf16; K7 in bf16
@@ -42,12 +57,12 @@ Phases (any failure exits non-zero and prints no final `ok` line):
 12. the bf16 30-s step at B=4 (1500 patches, blocked plan 1536): K5 12
    times per step and no K4 or K7; peak memory, 3 timed steps;
 13. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
-   kernel and chain, the K2 and K3 blocks, K4, K5, K7 and K8 against their
-   plain versions, and the bf16 10-s training step (median of 6),
+   kernel and chain, the K2 and K3 blocks, K3′, K4, K5, K6, K7, K8 and K8′
+   against their plain versions, and the bf16 10-s training step (median of 6),
    beside the card's name and power limit.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
-entry per TPU kernel (K1, K2, K3, K4, K5, K7, K8); the last line is
+entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -68,9 +83,11 @@ from cacophony_tpu_torch import configs
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
 from cacophony_tpu_torch.frontend import fused
-from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
-from cacophony_tpu_torch.models.audio import ViTBlock
-from cacophony_tpu_torch.models.caco import caco_init
+from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples, patchify_spectrogram
+from cacophony_tpu_torch.models import caco
+from cacophony_tpu_torch.models.audio import LN_EPS, ViTBlock, audio_input_embedding, encoder_layer
+from cacophony_tpu_torch.models.caco import caco_init, get_audio_embedding
+from cacophony_tpu_torch.models.layers import layer_norm
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
@@ -94,12 +111,16 @@ TPU_KERNELS = {  # name → (sources, the Pallas function it replaces, launch-co
     "K1": (CHAIN_SOURCES, f"{EA}:594", "k1_layer"),  # _pallas_fused_block, with_mlp=True
     "K2": (CHAIN_SOURCES, f"{EA}:594", "k2_block"),  # _pallas_fused_block, with_mlp=False
     "K3": (CHAIN_SOURCES, f"{EA}:763", "k3_block"),  # _pallas_fused_block_blocked
+    "K3′": (CHAIN_SOURCES, f"{EA}:763", "k3_layer"),  # the same, with_mlp=True
     "K4": (CSRC + "attention.cu", f"{EA}:317", "k4"),  # _pallas_forward
     "K5": (CSRC + "attention.cu", f"{EA}:351", "k5"),  # _pallas_forward_blocked
+    "K6": (CHAIN_SOURCES, f"{EA}:411", "k6_attn"),  # _pallas_fused_ln
     "K7": (CSRC + "attention_bwd.cu", f"{EA}:1147", "k7"),  # _pallas_backward
     "K8": (CSRC + "log_mel.cu", "cacophony_tpu/frontend/fused.py:153", "log_mel"),
+    "K8′": (CSRC + "log_mel.cu", "cacophony_tpu/frontend/fused.py:153", "log_mel_fast"),
 }
 TRAIN_BATCH, TRAIN_BATCH_30, TEXT_LEN = 16, 4, 100
+VARIANT_BATCH_30, GRAD_BATCH = 8, 8  # the K3′ 30-s path; the bf16 gradient phase
 TRAIN_STEPS = 5
 # |kernel - plain| ≤ atol + rtol·|plain|, elementwise.  bf16: outputs are
 # rounded to bf16 (8 mantissa bits) after fp32 sums taken in another order,
@@ -110,7 +131,23 @@ TOL = {
     torch.bfloat16: {"kernel": (2e-2, 1e-2), "chain": (6e-2, 3e-2), "k7": (3e-2, 2e-2)},
     torch.float32: {"kernel": (1e-4, 1e-4), "chain": (5e-4, 5e-4), "k7": (1e-4, 1e-4)},
     "log_mel": (1e-4, 0.0),
+    "fast_dft": (2e-4, 0.0),
 }
+# K8′ (the bf16×3 DFT) against its plain version: TOL["log_mel"].  Against
+# exact K8: the JAX package's own bound on its fast DFT, 2e-4
+# (tests/test_fused_frontend.py:71-82, two clips of 200 frames).  Over
+# millions of values the bf16×3 DFT itself passes it on about one value in
+# a million — a mel value near 1e-3 whose few DFT bins nearly cancel — so
+# the bound is held where the plain version meets it, and elsewhere K8′ may
+# be no farther from K8 than the plain version is, plus TOL["log_mel"].  The fp32 gradients through the inference encoder on the
+# card against the same computation on the CPU: relative L2 ≤ 1e-4 (fp32
+# sums in another order through 12 layers, their forward kernels and the
+# rematerialising backward).  The variant paths against the default route
+# at caco_base in bf16: cosine ≥ 0.999, the bf16-vs-fp32 bound of phase 6
+# (K6 and K3′ round where K1 and K3 do, but the MLP outside K6 and the
+# blocked MLP inside K3′ move bf16 rounding points).
+GRAD_TOL = 1e-4
+COS_VARIANT = 0.999
 # K7's bf16 bound is wider than one kernel's: P and dS are rounded to bf16
 # before their products, so a rounding step of either moves a gradient by
 # one more.  The fp32 step on the card against the same step on the CPU
@@ -262,7 +299,7 @@ def kernel_phase(blk):
 
 @torch.inference_mode()
 def block_phase(blk):
-    """Phase 3: K2 and K3 (fused_block) against the plain chain.  At
+    """Phase 3: K2 and K3 (fused_block_attention) against the plain chain.  At
     S=1496 K3 pads to 1536 inside: 40 padded keys on top of the short
     clips, and clip 6 has no valid patch at all."""
     b, d, h = 8, D, H
@@ -276,8 +313,9 @@ def block_phase(blk):
         print(f"phase 3: {name} block vs plain, {str(dt).split('.')[-1]}, B={b} S={s}"
               f"{' (padded to 1536 inside)' if blocked else ''}")
         x, mask = layer_inputs(b, s, d, dt, gen, lengths)
-        got = ea.fused_block(blk, x, mask, h, 1e-6, blocked=blocked)
-        ref = ea.fused_block_plain(blk, x, mask, h, 1e-6, blocked=blocked)
+        variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK) if blocked else ("one_shot",)
+        got = ea.fused_block_attention(blk, x, mask, h, 1e-6, variant)
+        ref = ea.fused_block_attention_plain(blk, x, mask, h, 1e-6, variant)
         atol, rtol = TOL[dt]["chain"]
         err = max(compare(f"{name} {label}", g, r, atol, rtol)
                   for label, g, r in zip(("y", "LN2 y"), got, ref))
@@ -288,11 +326,37 @@ def block_phase(blk):
 
 
 @torch.inference_mode()
+def variant_phase(blk):
+    """Phase 3b: K6 (LN1 → QKV → attention) at S=496 and K3′ (the whole
+    layer at S=1496 padded to 1536 inside) against the plain chain, bf16,
+    B=8, padded keys and a clip with no valid key (K6 gives it 0)."""
+    b, h, dt = 8, H, torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 6)
+    atol, rtol = TOL[dt]["chain"]
+    print(f"phase 3b: K6 and K3′ vs plain, bfloat16, B={b}")
+    x, mask = layer_inputs(b, 496, D, dt, gen, [496, 400, 300, 496, 100, 250, 0, 17])
+    got = ea.fused_ln_attention(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6)
+    errs = {"K6": compare("K6 LN1 → QKV → attention, S=496", got,
+                          ea.fused_ln_attention_plain(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6),
+                          atol, rtol)}
+    check(bool((got[6] == 0).all()), "K6: the all-masked clip is not exactly 0")
+    x, mask = layer_inputs(b, 1496, D, dt, gen, [1496, 1200, 700, 1496, 100, 37, 0, 1000])
+    variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK)
+    got = ea.fused_layer(blk, x, mask, h, 1e-6, variant)
+    check(got.shape == (b, 1496, D) and bool(torch.isfinite(got).all()),
+          f"K3′: shape {tuple(got.shape)} or non-finite rows")
+    errs["K3′"] = compare("K3′ layer, S=1496 (1536 inside)", got,
+                          ea.fused_layer_plain(blk, x, mask, h, 1e-6, variant), atol, rtol)
+    return errs
+
+
+@torch.inference_mode()
 def log_mel_phase():
-    """Phase 4: K8 against its plain version, B=8, 10-s and 30-s buffers."""
+    """Phase 4: K8 and K8′ against their plain versions, and K8′ against
+    K8, B=8, 10-s and 30-s buffers."""
     front = configs.FrontendConfig()
     gen = torch.Generator().manual_seed(SEED + 3)
-    err = 0.0
+    err = err_fast = 0.0
     for seconds in (10, 30):
         frames = seconds * 100
         lens = [seconds * 16000, 3 * 16000, 12345, seconds * 16000, 16000, 0, 160, 7 * 16000]
@@ -300,10 +364,28 @@ def log_mel_phase():
         for i, n in enumerate(lens):
             bufs[i, :n] = (1e-4 if i == 3 else 0.1) * torch.randn(n, generator=gen)
         rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
-        print(f"phase 4: K8 vs plain, B={len(lens)}, {frames} frames")
-        err = max(err, compare(f"K8 log-mel, {frames} frames", fused.fused_log_mel(rows, front, frames),
+        print(f"phase 4: K8 and K8′ vs plain, B={len(lens)}, {frames} frames")
+        exact = fused.fused_log_mel(rows, front, frames)
+        err = max(err, compare(f"K8 log-mel, {frames} frames", exact,
                                fused.fused_log_mel_plain(rows, front, frames), *TOL["log_mel"]))
-    return err
+        fast = fused.fused_log_mel(rows, front, frames, fast_dft=True)
+        plain_fast = fused.fused_log_mel_plain(rows, front, frames, fast_dft=True)
+        err_fast = max(err_fast, compare(f"K8′ log-mel, {frames} frames", fast, plain_fast,
+                                         *TOL["log_mel"]))
+        check_fast_dft(f"{frames} frames", fast, plain_fast, exact)
+    return {"K8": err, "K8′": err_fast}
+
+
+def check_fast_dft(label, fast, plain_fast, exact):
+    """K8′ against exact K8: within JAX's 2e-4 wherever its bf16×3 DFT (the
+    plain version) is, and elsewhere no farther than it plus TOL["log_mel"]."""
+    bound = TOL["fast_dft"][0]
+    err, err_plain = (fast - exact).abs(), (plain_fast - exact).abs()
+    ok = bool((err <= torch.clamp(err_plain + TOL["log_mel"][0], min=bound)).all())
+    print(f"  K8′ vs exact K8, {label}: max |Δ| {float(err.max()):.3e} (plain bf16×3 "
+          f"{float(err_plain.max()):.3e}); values beyond {bound:g}: {int((err > bound).sum())} of "
+          f"{err.numel()} (plain {int((err_plain > bound).sum())})  {'ok' if ok else 'FAIL'}")
+    check(ok, f"K8′ {label}: farther from K8 than its plain version allows")
 
 
 def _dt_name(dt) -> str:
@@ -381,8 +463,9 @@ def no_text_dropout(cfg):
     return dataclasses.replace(cfg, text=text, decoder=dec)
 
 
-NO_SERVING_KERNELS = {"k1_layer": 0, "k2_block": 0, "k3_block": 0, "attention": 0, "gemm": 0, "layer_norm": 0,
-        "log_mel": 0}  # training runs none of the serving kernels
+NO_SERVING_KERNELS = {"k1_layer": 0, "k2_block": 0, "k3_block": 0, "k3_layer": 0, "k6_attn": 0,
+                      "attention": 0, "gemm": 0, "layer_norm": 0, "log_mel": 0,
+                      "log_mel_fast": 0}  # training runs none of the serving kernels
 
 
 def time_steps(step, state, batch, gen, n: int):
@@ -515,6 +598,148 @@ def check_embeddings(name, emb, n, cfg):
     check(dev <= 1e-3, f"{name}: embedding norms off by {dev}")
 
 
+def embed_by_layers(model, cfg, batch, layer):
+    """The pooled, normalized audio embedding with every encoder layer run
+    by `layer(blk, x, mask)` (get_audio_embedding's computation, the layer
+    driven from outside)."""
+    mask = batch["audio_mask"]
+    x = audio_input_embedding(model.audio, cfg.audio, batch["audio_patches"],
+                              batch["audio_time_inds"], batch["audio_freq_inds"], cfg.dtype)
+    for blk in model.audio.blocks:
+        x = layer(blk, x, mask)
+    hidden = layer_norm(model.audio.ln_f, x, LN_EPS)
+    return caco._normalize(caco.audio_pooler_apply(model.audio_pool, cfg, hidden, mask))
+
+
+def device_buffers(wavs, seconds: int):
+    """(B, seconds · 16 k) zero-padded buffers and (B,) lengths on the card."""
+    bufs = np.zeros((len(wavs), seconds * 16000), np.float32)
+    for i, w in enumerate(wavs):
+        bufs[i, :len(w)] = w[:bufs.shape[1]]
+    lens = np.asarray([min(len(w), bufs.shape[1]) for w in wavs], np.int32)
+    return torch.from_numpy(bufs).to(DEVICE), torch.from_numpy(lens).to(DEVICE)
+
+
+@torch.inference_mode()
+def variant_paths_phase(cfg, model, engine, engine30, wavs, wavs30):
+    """Phase 8b: the paths of K6, K3′ and K8′ at caco_base, bf16, seed 0,
+    each through its own entry point: a 12-layer 10-s encoder (B=32,
+    S=496) through route "k6"; a 12-layer 30-s encoder (B=8, 1536 patches)
+    through `try_fused_layer(allow_blocked=True)`; `fused_batch_wav_to_patches`
+    with fast_dft on 10-s and 30-s buffers."""
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    n, dt = cfg.audio.num_layers, torch.bfloat16
+    print("phase 8b: the K6, K3′ and K8′ paths at caco_base, bf16")
+    check(ea.layer_route(496, D, INTER, dt) == ("k1", 496)
+          and ea.fused_ln_attention_applies(496, D, dt), "K6 does not apply at S=496")
+    out = {}
+    batch = engine.audio_patch_batch(wavs[:BATCH])[0]
+    ref = get_audio_embedding(model, cfg, **batch)[0].float().cpu().numpy()
+    emb, out["K6"] = drive("bf16 10-s encoder, every layer through route k6",
+                           lambda: embed_by_layers(model, cfg, batch,
+                                                   lambda b, x, m: encoder_layer(b, x, m, H, "k6", dt)),
+                           {"k6_attn": n, "k1_layer": 0, "k2_block": 0, "attention": n})
+    emb = emb.float().cpu().numpy()
+    check_embeddings("route k6", emb, BATCH, cfg)
+    cos_k6 = float(cosine_rows(emb, ref).min())
+
+    b30 = VARIANT_BATCH_30
+    batch30 = {k: v[:b30] for k, v in engine30.audio_patch_batch(wavs30[:b30])[0].items()}
+    check(batch30["audio_patches"].shape[1] == 1536, "30-s batch is not at 1536 patches")
+
+    def k3_prime(b, x, m):
+        y = ea.try_fused_layer(b, x, m, H, LN_EPS, dt, allow_blocked=True)
+        check(y is not None, "try_fused_layer(allow_blocked=True) declined at 1536 patches")
+        return y
+
+    ref30 = get_audio_embedding(model, cfg, **batch30)[0].float().cpu().numpy()
+    emb30, out["K3′"] = drive("bf16 30-s encoder through try_fused_layer(allow_blocked=True)",
+                              lambda: embed_by_layers(model, cfg, batch30, k3_prime),
+                              {"k3_layer": n, "k3_block": 0, "k1_layer": 0})
+    emb30 = emb30.float().cpu().numpy()
+    check_embeddings("K3′ path", emb30, b30, cfg)
+    cos_k3p = float(cosine_rows(emb30, ref30).min())
+    print(f"  cosine route k6 vs k1 (10 s, {BATCH} clips, min) {cos_k6:.7f}; K3′ vs K3 (30 s, "
+          f"{b30} clips, min) {cos_k3p:.7f} (≥ {COS_VARIANT})")
+    check(cos_k6 >= COS_VARIANT and cos_k3p >= COS_VARIANT, "a variant path disagrees with its default")
+
+    front = configs.FrontendConfig()
+    errs = {}
+    for seconds, clips, eng in ((10, wavs[:BATCH], engine), (30, wavs30[:b30], engine30)):
+        bufs, lens = device_buffers(clips, seconds)
+        fast_k8p = 1 if seconds == 10 else 0
+        fast, got = drive(f"fused_batch_wav_to_patches(fast_dft=True), {seconds}-s buffers",
+                          lambda: fused.fused_batch_wav_to_patches(bufs, lens, front, eng.patch,
+                                                                   fast_dft=True),
+                          {"log_mel_fast": fast_k8p, "log_mel": 1 - fast_k8p})
+        exact = fused.fused_batch_wav_to_patches(bufs, lens, front, eng.patch)
+        for k in ("audio_mask", "audio_time_inds", "audio_freq_inds"):
+            check(torch.equal(fast[k], exact[k]), f"fast_dft {seconds} s: {k} differs")
+        if seconds == 30:
+            check(torch.equal(fast["audio_patches"], exact["audio_patches"]),
+                  "fast_dft at 30 s is not the exact path")
+            continue
+        out["K8′"] = got
+        frames = seconds * 100
+        plain = fused.fused_log_mel_plain(fused.buffer_to_rows(bufs, frames, front), front, frames,
+                                          fast_dft=True)
+        valid = -(-lens // front.hop_length)
+        ref = patchify_spectrogram(plain, valid, eng.patch)["audio_patches"]
+        errs[seconds] = compare("fast_dft patches, 10 s, vs the plain K8′", fast["audio_patches"],
+                                ref, *TOL["log_mel"])
+    print("  fast_dft patches at 30 s: the exact path's (JAX's exact fallback)")
+    return out, {"cos_k6_vs_k1": cos_k6, "cos_k3prime_vs_k3": cos_k3p,
+                 "fast_dft_patch_err_10s": errs[10]}
+
+
+def grad_phase(cfg, model, wavs):
+    """Phase 8c: gradients through the inference encoder (the fused routes'
+    JAX backward).  bf16 10 s, B=8, loss = Σ embedding · a fixed random
+    vector: K1 12 times in the forward, every block parameter's gradient
+    present and finite.  fp32 at B=2 (K2 route): the card's gradients
+    against the same computation on the CPU."""
+    n = cfg.audio.num_layers
+    print("phase 8c: gradients through the inference encoder (audio_encoder_apply, train=False)")
+    vec = torch.randn(cfg.projection_size, generator=torch.Generator().manual_seed(SEED + 7))
+
+    def patch_batch(dt, clips):
+        engine = CacoEngine(cfg, model, device=DEVICE, batch_size=len(clips), dtype=dt)
+        return {k: v.clone() for k, v in engine.audio_patch_batch(clips)[0].items()}
+
+    def loss_backward(net, cfg_dt, batch):
+        emb, _ = get_audio_embedding(net, cfg_dt, **batch)
+        (emb @ vec.to(emb.device)).sum().backward()
+
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    batch = patch_batch(torch.bfloat16, wavs[:GRAD_BATCH])
+    model.zero_grad(set_to_none=True)
+    _, got = drive(f"bf16 10-s encoder forward + backward, B={GRAD_BATCH}",
+                   lambda: loss_backward(model, cfg16, batch),
+                   {"k1_layer": n, "k2_block": 0, "k6_attn": 0, "k7": 0})
+    blocks = list(model.audio.blocks.named_parameters())
+    bad = [k for k, p in blocks if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"bf16 block parameters without a finite gradient: {bad[:4]}")
+    print(f"  {len(blocks)} block parameters, every gradient present and finite")
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    batch = patch_batch(torch.float32, wavs[:2])
+    model.zero_grad(set_to_none=True)
+    drive("fp32 10-s encoder forward + backward, B=2", lambda: loss_backward(model, cfg32, batch),
+          {"k2_block": n, "k1_layer": 0})
+    cpu_model = caco_init(cfg, torch.Generator().manual_seed(SEED))
+    loss_backward(cpu_model, cfg32, {k: v.cpu() for k, v in batch.items()})
+    grads = []
+    for net in (model, cpu_model):
+        params = list(net.audio.parameters()) + list(net.audio_pool.parameters())
+        check(all(p.grad is not None for p in params), "an audio parameter has no gradient")
+        grads.append(torch.cat([p.grad.flatten().double().cpu() for p in params]))
+    rel = float((grads[0] - grads[1]).norm() / grads[1].norm())
+    print(f"  fp32 gradients card vs CPU (audio encoder + pooler), rel L2 {rel:.2e} (≤ {GRAD_TOL})")
+    check(rel <= GRAD_TOL, "fp32 gradients on the card disagree with the CPU")
+    model.zero_grad(set_to_none=True)
+    return got, {"fp32_grad_rel_err": rel, "bf16_block_params_with_grad": len(blocks)}
+
+
 def byte_tokenizer():
     """Degenerate byte-level BPE: specials + all 256 byte symbols, no merges."""
     vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
@@ -527,8 +752,9 @@ def byte_tokenizer():
 def timing_phase(blk, label):
     """Phase 13: per-layer K1 chain and each kernel vs plain at B=32, S=496,
     bf16 (a kernel's time is the sum over its calls in one layer); the K2
-    block in fp32 at S=496, the K3 block in bf16 at S=1536, and K8 at 1000
-    and 3000 frames, all at B=32; K4 and K7 at the 10-s step's shape (B=16,
+    block in fp32 at S=496, the K3 block and the K3′ layer in bf16 at
+    S=1536, K6 in bf16 at S=496, and K8 and K8′ at 1000 and 3000 frames,
+    all at B=32; K4 and K7 at the 10-s step's shape (B=16,
     S=500, bf16) and K5 at the 30-s step's (B=4, S=1500 padded to 1536)."""
     b, s, d, h = BATCH, 496, D, H
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -545,8 +771,9 @@ def timing_phase(blk, label):
                                     ("k3_block", torch.bfloat16, 1536, True)):
         lens = list(np.random.RandomState(SEED).randint(s_blk // 10, s_blk + 1, size=b))
         xb, mb = layer_inputs(b, s_blk, d, dt, gen, lens)
-        times[key] = paired_ms(lambda: ea.fused_block(blk, xb, mb, h, 1e-6, blocked=blocked),
-                               lambda: ea.fused_block_plain(blk, xb, mb, h, 1e-6, blocked=blocked),
+        variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK) if blocked else ("one_shot",)
+        times[key] = paired_ms(lambda: ea.fused_block_attention(blk, xb, mb, h, 1e-6, variant),
+                               lambda: ea.fused_block_attention_plain(blk, xb, mb, h, 1e-6, variant),
                                5)
     qkv, m16 = layer_inputs(TRAIN_BATCH, 500, 3 * d, torch.bfloat16, gen,
                             list(np.random.RandomState(SEED).randint(100, 501, size=TRAIN_BATCH)))
@@ -560,6 +787,14 @@ def timing_phase(blk, label):
     kv, _ = layer_inputs(TRAIN_BATCH_30, 1500, 2 * d, torch.bfloat16, gen, lens)
     times["k5"] = paired_ms(lambda: ea.encoder_attention_blocked(q, kv, m4, h),
                             lambda: ea.encoder_attention_blocked_plain(q, kv, m4, h), 10)
+    times["k6_attn"] = paired_ms(
+        lambda: ea.fused_ln_attention(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6),
+        lambda: ea.fused_ln_attention_plain(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6), 10)
+    lens = list(np.random.RandomState(SEED).randint(153, 1537, size=b))
+    x30, m30 = layer_inputs(b, 1536, d, torch.bfloat16, gen, lens)
+    variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK)
+    times["k3_layer"] = paired_ms(lambda: ea.fused_layer(blk, x30, m30, h, 1e-6, variant),
+                                  lambda: ea.fused_layer_plain(blk, x30, m30, h, 1e-6, variant), 5)
     front = configs.FrontendConfig()
     for frames in (1000, 3000):
         bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
@@ -567,12 +802,19 @@ def timing_phase(blk, label):
         times[f"log_mel_{frames}"] = paired_ms(lambda: fused.fused_log_mel(rows, front, frames),
                                                lambda: fused.fused_log_mel_plain(rows, front, frames),
                                                10)
+        times[f"log_mel_fast_{frames}"] = paired_ms(
+            lambda: fused.fused_log_mel(rows, front, frames, fast_dft=True),
+            lambda: fused.fused_log_mel_plain(rows, front, frames, fast_dft=True), 10)
     what = {"layer_norm": "LN1 + LN2 (bf16, S=496)", "gemm": "4 products, one layer (bf16, S=496)",
             "attention": "attention (bf16, S=496)", "k1_layer": "K1 chain, one layer (bf16, S=496)",
             "k2_block": "K2 block (fp32, S=496)", "k3_block": "K3 block (bf16, S=1536)",
             "k4": "K4 (bf16, B=16, S=500)", "k7": "K7 (bf16, B=16, S=500)",
             "k5": "K5 (bf16, B=4, S=1500 → 1536)",
-            "log_mel_1000": "K8 log-mel (1000 frames)", "log_mel_3000": "K8 log-mel (3000 frames)"}
+            "log_mel_1000": "K8 log-mel (1000 frames)", "log_mel_3000": "K8 log-mel (3000 frames)",
+            "k6_attn": "K6 LN1 → QKV → attention (bf16, S=496)",
+            "k3_layer": "K3′ layer (bf16, S=1536)",
+            "log_mel_fast_1000": "K8′ log-mel (1000 frames)",
+            "log_mel_fast_3000": "K8′ log-mel (3000 frames)"}
     for k, (km, pm) in times.items():
         print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms  ({label})")
     return times
@@ -609,7 +851,8 @@ def run() -> dict:
     blk = ViTBlock(D, INTER, torch.Generator().manual_seed(SEED)).to(DEVICE)
     errs = kernel_phase(blk)
     errs.update(block_phase(blk))
-    errs["K8"] = log_mel_phase()
+    errs.update(variant_phase(blk))
+    errs.update(log_mel_phase())
 
     cfg = configs.caco_base()
     n_layers = cfg.audio.num_layers
@@ -704,6 +947,10 @@ def run() -> dict:
     check(cos30 >= 0.999, "30-s bf16 path disagrees with fp32")
     del engine30_32
 
+    variant_paths, variants = variant_paths_phase(cfg, model, engine, engine30, wavs, wavs30)
+    path.update(variant_paths)
+    _, grads = grad_phase(cfg, model, wavs)
+
     errs.update(attention_phase())
     path["K4"], train_bf16 = train_bf16_phase(cfg, rs)
     path["K7"] = path["K4"]
@@ -721,16 +968,17 @@ def run() -> dict:
           f"batch {BATCH}, {len(bench30)} clips per run; {label})")
     times = timing_phase(blk, label)
     times["k8"] = times["log_mel_1000"]
+    times["k8_fast"] = times["log_mel_fast_1000"]
 
     print(f"  bf16 10-s training step {train_bf16['median_step_ms']:.2f} ms/step (median of 6, "
           f"B={TRAIN_BATCH}), peak {train_bf16['peak_gib']:.2f} GiB ({label})")
     print(f"  fp32 10-s training step {np.median(train_fp32['step_ms']):.2f} ms/step (median of 3, "
           f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
           f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
-    err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K4": "K4", "K5": "K5", "K7": "K7",
-               "K8": "K8"}
-    time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K4": "k4", "K5": "k5",
-                "K7": "k7", "K8": "k8"}
+    err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
+               "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
+    time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
+                "K5": "k5", "K6": "k6_attn", "K7": "k7", "K8": "k8", "K8′": "k8_fast"}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": path[name][key], "max_abs_err": errs[err_key[name]],
                 "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1]}
@@ -740,6 +988,9 @@ def run() -> dict:
                              "ms": times[k][0], "plain_ms": times[k][1]}
                          for k, src in K1_PARTS.items()},
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
+            "log_mel_fast_3000": {"ms": times["log_mel_fast_3000"][0],
+                                  "plain_ms": times["log_mel_fast_3000"][1]},
+            "variant_paths": variants, "inference_grads": grads,
             "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30},
             "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},
             "gpu": label}

@@ -1,5 +1,7 @@
-"""The CUDA kernels on the card (K1's chain, K2/K3's block chain, K4, K5,
-K4's backward K7, K8's log-mel), against their plain PyTorch versions.
+"""The CUDA kernels on the card (K1's chain, K2/K3's block chain, K3′'s
+blocked layer, K6's LN1 → QKV → attention, K4, K5, K4's backward K7, K8's
+log-mel and its bf16×3 form K8′), against their plain PyTorch versions,
+and the fused routes' gradients on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -13,7 +15,9 @@ Tolerances: fp32 5e-4 absolute (summation order through the layer), bf16
 fp32 sums taken in another order, compounded over the layer's seven
 stages); the same bounds chip_smoke.py states.  K8: 1e-4 absolute on the
 log-mel (fp32 sums in another order; the log scales a mel error δ by
-0.2/(mel + 1e-5)).  K4, K5: bf16 2e-2 + 1e-2·|x|, fp32 1e-4 + 1e-4·|x| (one
+0.2/(mel + 1e-5)); K8′ the same against its plain version, and 2e-4
+against K8 (JAX's bound on the bf16×3 DFT, tests/test_fused_frontend.py).
+K4, K5: bf16 2e-2 + 1e-2·|x|, fp32 1e-4 + 1e-4·|x| (one
 kernel: one bf16 rounding after fp32 sums in another order).  K7: bf16
 3e-2 + 2e-2·|x| (P and dS are rounded to bf16 before their products, so a
 rounding step of either moves a gradient by one more), fp32 1e-4 + 1e-4·|x|.
@@ -63,7 +67,7 @@ def test_launch_counters_count_kernel_launches(cuda):
         ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6)
         torch.cuda.synchronize()
     assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1, "k4": 0, "k5": 0,
-                             "k7": 0, "log_mel": 0}
+                             "k7": 0, "log_mel": 0, "log_mel_fast": 0}
     assert ea.LAYER_LAUNCHES["k1_layer"] == 1
 
 
@@ -129,12 +133,13 @@ def test_fused_block_matches_plain_at_1536(cuda, dtype, blocked):
     blk, x, mask = _layer(768, 3072, 4, s, [s, 700, 37, 0], td, 3)
     for k in ea.LAYER_LAUNCHES:
         ea.LAYER_LAUNCHES[k] = 0
+    variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK) if blocked else ("one_shot",)
     with torch.inference_mode():
-        plain = ea.fused_block_plain(blk, x, mask, 8, 1e-6, blocked=blocked)
-        got = ea.fused_block(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6, blocked=blocked)
+        plain = ea.fused_block_attention_plain(blk, x, mask, 8, 1e-6, variant)
+        got = ea.fused_block_attention(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6, variant)
         torch.cuda.synchronize()
-    assert ea.LAYER_LAUNCHES == {"k1_layer": 0, "k2_block": int(not blocked),
-                                 "k3_block": int(blocked)}
+    assert ea.LAYER_LAUNCHES == {"k1_layer": 0, "k3_layer": 0, "k2_block": int(not blocked),
+                                 "k3_block": int(blocked), "k6_attn": 0}
     atol, rtol = TOL[dtype]
     for g, p in zip(got, plain):
         g = g.cpu()
@@ -241,3 +246,103 @@ def test_k4_backward_is_k7_only_where_jax_runs_it(cuda, dtype):
     assert kern.LAUNCHES["k4"] == 1
     assert kern.LAUNCHES["k7"] == (1 if dtype == "bfloat16" else 0)
     assert torch.isfinite(x.grad).all()
+
+
+def _reset_layer_launches():
+    kern.reset_launches()
+    for k in ea.LAYER_LAUNCHES:
+        ea.LAYER_LAUNCHES[k] = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_matches_plain(cuda, dtype):
+    """K6 at the published width, S = 496: LN1 → QKV → attention, one K6
+    count (LN ×1, GEMM ×1, attention ×1); the all-masked clip gives 0."""
+    td = getattr(torch, dtype)
+    blk, x, mask = _layer(768, 3072, 3, 496, [496, 123, 0], td, 9)
+    _reset_layer_launches()
+    with torch.inference_mode():
+        plain = ea.fused_ln_attention_plain(blk.ln1, blk.attn.qkv, x, mask, 8, 1e-6)
+        blk = blk.to(cuda)
+        got = ea.fused_ln_attention(blk.ln1, blk.attn.qkv, x.to(cuda), mask.to(cuda), 8, 1e-6)
+        torch.cuda.synchronize()
+    assert ea.LAYER_LAUNCHES["k6_attn"] == 1
+    assert (kern.LAUNCHES["layer_norm"], kern.LAUNCHES["gemm"], kern.LAUNCHES["attention"]) == (1, 1, 1)
+    assert (got[2] == 0).all()
+    _check(got, plain, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_prime_matches_plain_at_1536(cuda, dtype):
+    """K3′: the whole layer over S = 1496 padded to 1536 inside; one
+    k3_layer count and no k1_layer."""
+    td = getattr(torch, dtype)
+    blk, x, mask = _layer(768, 3072, 3, 1496, [1496, 700, 0], td, 10)
+    variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK)
+    _reset_layer_launches()
+    with torch.inference_mode():
+        plain = ea.fused_layer_plain(blk, x, mask, 8, 1e-6, variant)
+        got = ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6, variant)
+        torch.cuda.synchronize()
+    assert ea.LAYER_LAUNCHES["k3_layer"] == 1 and ea.LAYER_LAUNCHES["k1_layer"] == 0
+    assert got.shape == (3, 1496, 768)
+    _check(got, plain, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [10, 30])
+def test_log_mel_fast_kernel_matches_plain(cuda, seconds):
+    """K8′ at 1000 and 3000 frames: noise, a quiet clip, a silent clip;
+    against its plain version and within JAX's 2e-4 of exact K8."""
+    front = FrontendConfig()
+    frames = seconds * 100
+    gen = torch.Generator().manual_seed(11)
+    bufs = 0.1 * torch.randn(3, seconds * 16_000, generator=gen)
+    bufs[1] *= 1e-3
+    bufs[2] = 0.0
+    rows = fused.buffer_to_rows(bufs, frames, front)
+    plain = fused.fused_log_mel_plain(rows, front, frames, fast_dft=True)
+    kern.reset_launches()
+    got = fused.fused_log_mel(rows.to(cuda), front, frames, fast_dft=True)
+    exact = fused.fused_log_mel(rows.to(cuda), front, frames)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["log_mel_fast"] == 1 and kern.LAUNCHES["log_mel"] == 1
+    assert got.shape == (3, frames, 128)
+    _check(got, plain, (1e-4, 0.0))
+    _check(got, exact.cpu(), (2e-4, 0.0))
+
+
+@pytest.mark.cuda
+def test_fused_routes_take_gradients_on_the_card(cuda):
+    """The repair: K1, K3′, K2, K3 and K6 on CUDA tensors whose parameters
+    need gradients give outputs with a grad_fn, and backward fills every
+    parameter of the route (fp32, against the same backward on the CPU)."""
+    blk, x, mask = _layer(768, 3072, 2, 300, [300, 0], torch.float32, 12)
+    blk_c = ViTBlock(768, 3072).to(cuda)
+    blk_c.load_state_dict(blk.state_dict())
+    routes = {
+        "k1": lambda b, xx, m: ea.fused_layer(b, xx, m, 8, 1e-6),
+        "k3_prime": lambda b, xx, m: ea.fused_layer(b, xx, m, 8, 1e-6, ("blocked", 256)),
+        "k2": lambda b, xx, m: sum(ea.fused_block_attention(b, xx, m, 8, 1e-6, ("one_shot",))),
+        "k3": lambda b, xx, m: sum(ea.fused_block_attention(b, xx, m, 8, 1e-6, ("blocked", 256))),
+        "k6": lambda b, xx, m: ea.fused_ln_attention(b.ln1, b.attn.qkv, xx, m, 8, 1e-6),
+    }
+    w = torch.randn(300, 768, generator=torch.Generator().manual_seed(13))
+    for name, fn in routes.items():
+        grads = []
+        for b, dev in ((blk, "cpu"), (blk_c, cuda)):
+            b.zero_grad(set_to_none=True)
+            xx = x.detach().to(dev).requires_grad_()
+            out = fn(b, xx, mask.to(dev))
+            assert out.grad_fn is not None, name
+            (out * w.to(dev)).sum().backward()
+            used = [p for p in b.parameters() if p.grad is not None]
+            assert used and all(torch.isfinite(p.grad).all() for p in used), name
+            if name in ("k1", "k3_prime"):  # a whole layer: every block parameter
+                assert len(used) == len(list(b.parameters())), name
+            grads.append(torch.cat([xx.grad.flatten()] + [p.grad.flatten() for p in used]).cpu())
+        assert grads[0].shape == grads[1].shape, name
+        rel = float((grads[1] - grads[0]).norm() / grads[0].norm())
+        assert rel <= 1e-4, (name, rel)

@@ -87,19 +87,22 @@ def test_serving_routes():
 
 @pytest.mark.parametrize("route", ["k4", "k5", "k6"])
 def test_unported_routes_raise(route):
-    """K6 is not ported and raises.  The "k4" and "k5" routes are ported
-    since: they run the unfused block, whose attention takes K4 or K5 by
-    its plan (here one-shot: K4)."""
+    """Every route is ported now, and only an unknown route raises.  The
+    "k4" and "k5" routes run the unfused block, whose attention takes K4 or
+    K5 by its plan (here one-shot: K4); "k6" runs K6 with the rest of the
+    layer outside it, the einsum layer's value up to fp32 rounding (the
+    clamp softmax against the −1e30 bias)."""
     _, blk = _block_params(np.random.RandomState(0), 32, 64)
     x, mask = torch.randn(1, 8, 32), torch.ones(1, 8)
-    if route == "k6":
-        with pytest.raises(NotImplementedError, match="K6"):
-            encoder_layer(blk, x, mask, 2, route, torch.float32)
-        return
     with torch.no_grad():
         got = encoder_layer(blk, x, mask, 2, route, torch.float32)
         want = encoder_layer(blk, x, mask, 2, "einsum", torch.float32)
-    assert torch.equal(got, want)
+    if route == "k6":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="unknown encoder layer route"):
+        encoder_layer(blk, x, mask, 2, "k9", torch.float32)
 
 
 def _inputs(rs, b, s, d, lengths):
@@ -132,7 +135,8 @@ def test_fused_block_matches_pallas_k2(dtype):
     ref = jea._pallas_fused_block(jt, jnp.asarray(x, jd), jnp.asarray(mask), 4, EPS,
                                   interpret=True, with_mlp=False)
     with torch.no_grad():
-        got = tea.fused_block(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask), 4, EPS)
+        got = tea.fused_block_attention(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask), 4,
+                                        EPS, ("one_shot",))
     for g, r in zip(got, ref):
         assert g.dtype == td and g.shape == (3, 48, 64)
         _assert_matches(g, r, dtype)
@@ -150,13 +154,13 @@ def test_fused_block_blocked_matches_pallas_k3(dtype):
     ref = jea._pallas_fused_block_blocked(jt, jnp.asarray(x, jd), jnp.asarray(mask), 4, EPS,
                                           q_block=256, interpret=True)
     with torch.no_grad():
-        got = tea.fused_block(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask), 4, EPS,
-                              blocked=True)
+        got = tea.fused_block_attention(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask), 4,
+                                        EPS, ("blocked", 256))
     for g, r in zip(got, ref):
         assert g.shape == (3, 300, 64)
         _assert_matches(g, r, dtype, (1e-6, 2 ** -7), 1e-3)
-    plain = tea.fused_block_plain(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask), 4, EPS,
-                                  blocked=True)
+    plain = tea.fused_block_attention_plain(blk, torch.from_numpy(x).to(td), torch.from_numpy(mask),
+                                            4, EPS, ("blocked", 256))
     for g, p in zip(got, plain):
         assert torch.equal(g, p)
 
