@@ -75,24 +75,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- PTX wrappers: cp.async, ldmatrix, mma.sync (bf16 in, fp32 accumulate)
+// ---- PTX wrappers: ldmatrix, mma.sync (bf16 in, fp32 accumulate)
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; zero-fills the destination when pred is false.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {

@@ -143,6 +143,8 @@ def load_library() -> ctypes.CDLL:
     lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
     lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
+    lib.k1_silu_sweep.argtypes = [p, p]
+    lib.k1_silu_sweep.restype = ctypes.c_int
     for sym in set(_SYMBOLS.values()):
         getattr(lib, sym).restype = ctypes.c_int
     _lib = lib
@@ -226,10 +228,15 @@ def gemm_plain(a, w, bias, epilogue: int, resid=None):
     raise ValueError(f"unknown epilogue {epilogue}")
 
 
-def gemm(a, w, bias, epilogue: int, resid=None):
-    """(..., K) @ (K, N) + bias with a fused epilogue (csrc/gemm.cu)."""
-    if _device_kind(a, w, bias, resid) == "cpu":
-        return gemm_plain(a, w, bias, epilogue, resid)
+def _aligned(*ts) -> bool:
+    """16-byte aligned base pointers: TMA and the kernels' 16-byte accesses
+    need them (a fresh allocation is; a view at an odd offset may not be)."""
+    return all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
+
+
+def gemm_operands(a, w, bias, epilogue: int, resid=None):
+    """The GEMM kernel's contract → (M, N, K); raises ValueError on what
+    csrc/gemm.cu does not take.  Host-side only, so it runs on any device."""
     _check_common(a, bias)
     k = a.shape[-1]
     m = a.numel() // k
@@ -241,11 +248,35 @@ def gemm(a, w, bias, epilogue: int, resid=None):
     if epilogue in (EPI_BIAS_RESID_F32, EPI_BIAS_CAST_ADD):
         _need(resid is not None and resid.dtype == a.dtype and resid.is_contiguous()
               and resid.numel() == m * n, "residual")
+    else:
+        resid = None
+    _need(_aligned(a, w, bias, resid), "operands not 16-byte aligned")
+    return m, n, k
+
+
+def gemm(a, w, bias, epilogue: int, resid=None):
+    """(..., K) @ (K, N) + bias with a fused epilogue (csrc/gemm.cu)."""
+    if _device_kind(a, w, bias, resid) == "cpu":
+        return gemm_plain(a, w, bias, epilogue, resid)
+    m, n, k = gemm_operands(a, w, bias, epilogue, resid)
     out = torch.empty(*a.shape[:-1], n, dtype=a.dtype, device=a.device)
     _launch("gemm", a.device, _DTYPE_CODE[a.dtype], epilogue, a.data_ptr(), w.data_ptr(),
             bias.data_ptr(), resid.data_ptr() if resid is not None else None, out.data_ptr(),
             m, n, k)
     return out
+
+
+def silu_epilogue_mismatches(device="cuda") -> int:
+    """The bf16 GEMM's branch-free silu epilogue against apply_epilogue's
+    division, over every fp32 input bit pattern on the card: the number of
+    results whose bits differ (csrc/gemm.cu:k1_silu_sweep; 0 expected)."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(count.device):
+        err = load_library().k1_silu_sweep(count.data_ptr(),
+                                           torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"k1_silu_sweep: CUDA error {err} at launch")
+    return int(count.item())
 
 
 # --------------------------------------------------------------- attention
@@ -309,8 +340,9 @@ def attention_split_plain(q, kv, mask, num_heads: int):
     return attention_core_plain(q, *kv.chunk(2, dim=-1), mask, num_heads)
 
 
-def _attention_launch(counter: str, q, k, v, q_row: int, kv_row: int, mask, num_heads: int,
-                      causal: bool):
+def attention_operands(q, k, v, q_row: int, kv_row: int, mask, num_heads: int):
+    """The attention kernel's contract → (B, S, D, Dh); raises ValueError
+    on what csrc/attention.cu does not take.  Host-side only."""
     b, s, d = q.shape[0], q.shape[1], q.shape[-1]
     hd = d // num_heads
     _need(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype, f"dtype {q.dtype}")
@@ -321,8 +353,16 @@ def _attention_launch(counter: str, q, k, v, q_row: int, kv_row: int, mask, num_
         _need(hd in (64, 96), f"bf16 head dim {hd} (64 or 96)")
     else:
         _need(0 < hd <= 96, f"fp32 head dim {hd} (at most 96)")
-    _need(b > 0 and s > 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
-          "empty or misaligned q/k/v")
+    _need(b > 0 and s > 0 and _aligned(q, k, v), "empty or misaligned q/k/v")
+    _need(all(t.stride(-1) == 1 and t.stride(1) == row and t.stride(0) == s * row
+              for t, row in ((q, q_row), (k, kv_row), (v, kv_row))),
+          "q/k/v rows must be the given row strides apart, clips S rows apart")
+    return b, s, d, hd
+
+
+def _attention_launch(counter: str, q, k, v, q_row: int, kv_row: int, mask, num_heads: int,
+                      causal: bool):
+    b, s, d, hd = attention_operands(q, k, v, q_row, kv_row, mask, num_heads)
     out = torch.empty(b, s, d, dtype=q.dtype, device=q.device)
     _launch(counter, q.device, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_row, kv_row, mask.data_ptr(), out.data_ptr(), b, s, num_heads, hd,

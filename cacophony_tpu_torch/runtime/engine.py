@@ -47,14 +47,15 @@ DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
 
 class CacoEngine:
     def __init__(self, cfg: CacoConfig, params: CacoModel, *, tokenizer=None,
-                 device="cpu", buffer_seconds: float = 10.0, max_text_len: int = 100,
+                 device="cuda", buffer_seconds: float = 10.0, max_text_len: int = 100,
                  batch_size: int = 32, dtype: Optional[torch.dtype] = None,
                  fused_frontend: bool = False):
         """dtype overrides cfg.dtype as the compute dtype; parameters stay
-        fp32.  `params` is moved to `device` in place.  On CUDA the fp32
-        products (frontend, fp32 path) must be full fp32, so TF32 is turned
-        off for matmuls and cuDNN in this process, and bf16 products outside
-        the kernels sum in fp32 as XLA's do.
+        fp32.  `params` is moved to `device` in place.  The engine runs on
+        the card unless it is given device="cpu"; with no card it raises.
+        On CUDA the fp32 products (frontend, fp32 path) must be full fp32,
+        so TF32 is turned off for matmuls and cuDNN in this process, and
+        bf16 products outside the kernels sum in fp32 as XLA's do.
 
         fused_frontend: compute the log-mel with K8 instead of the unfused
         chain (the same values up to the order of fp32 sums)."""
@@ -63,6 +64,9 @@ class CacoEngine:
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"CacoEngine on {self.device}: no CUDA device; pass "
+                                   f'device="cpu" to run on the CPU')
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -6,6 +6,10 @@
 Phases (any failure exits non-zero and prints no final `ok` line):
 1. print the card's name and power limit (nvidia-smi); build the CUDA
    kernels from cacophony_tpu_torch/csrc (one nvcc per source, in parallel);
+   where the toolkit has cuobjdump, count the HGMMA (wgmma) instructions of
+   the bf16 GEMM and attention kernels in the built library (none fails);
+   sweep the bf16 GEMM's branch-free silu epilogue against apply_epilogue
+   over every fp32 input (any differing bit fails);
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
    plain PyTorch version on the card: B=8, S=496, D=768, H=8, I=3072, some
    padded keys and one all-masked clip, bf16 and fp32;
@@ -59,7 +63,12 @@ Phases (any failure exits non-zero and prints no final `ok` line):
 13. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
    kernel and chain, the K2 and K3 blocks, K3′, K4, K5, K6, K7, K8 and K8′
    against their plain versions, and the bf16 10-s training step (median of 6),
-   beside the card's name and power limit.
+   beside the card's name and power limit; each kernel's bound (its bytes
+   or operations over the H100's peaks); the redesigned bf16 GEMM and
+   attention against one PyTorch call in turns (torch.matmul at the 10-s
+   and 30-s products, F.scaled_dot_product_attention at S=496 and 1536, K4
+   and K5, SDPA's backward for K7), K2's fp32 links, the LayerNorm link and
+   K8's three library calls.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
@@ -72,12 +81,15 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cacophony_tpu_torch import configs
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
@@ -216,12 +228,58 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def paired_ms(kernel_fn, plain_fn, iters: int):
-    """plain, kernel, kernel, plain in one call; → (kernel ms, plain ms)."""
+    """plain, kernel, kernel, plain in one call; → (kernel ms, plain ms).
+    With a library call as kernel_fn and the kernel as plain_fn: kernel,
+    library, library, kernel; → (library ms, kernel ms)."""
     p1 = cuda_ms(plain_fn, iters)
     k1 = cuda_ms(kernel_fn, iters)
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+# The least time of a function on one H100 SXM (NVIDIA's published dense
+# peaks for the card): the larger of its bytes (each
+# input read once, each output written once) over the memory rate and its
+# operations over the peak of their type.
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: dict, nbytes: float):
+    """ops: {"bf16" or "fp32": operations} → (bound ms, "operations" or "bytes")."""
+    t_ops = sum(n / PEAK[k] for k, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_flops(heads, hd, s, valid, products=2):
+    """2·S·Dh flops per (query, valid key) for each of `products` S×S
+    products (Q·Kᵀ and P·V forward; five in the backward), per head; keys
+    that are masked out are work no caller needs."""
+    return products * 2 * heads * hd * s * int(sum(valid))
+
+
+def check_sass():
+    """Phase 1: the redesigned kernels issue wgmma (HGMMA in the SASS of the
+    built library), where the toolkit has cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("  HGMMA in the new kernels: not checked (no cuobjdump)")
+        return None
+    sass = subprocess.run([tool, "-sass", kern.load_library()._name], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {"gemm_bf16_wgmma_kernel": 0, "attention_bf16_wgmma_kernel": 0}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((k for k in counts if k in line), None)
+        elif current and "HGMMA" in line:
+            counts[current] += 1
+    print(f"  HGMMA instructions in the SASS (all instantiations): {counts}")
+    check(all(counts.values()), f"a redesigned kernel issues no wgmma: {counts}")
+    return counts
 
 
 def compare(name, got, ref, atol, rtol):
@@ -760,7 +818,13 @@ def timing_phase(blk, label):
     gen = torch.Generator().manual_seed(SEED + 1)
     lengths = list(np.random.RandomState(SEED).randint(48, 497, size=b))
     x, mask = layer_inputs(b, s, d, torch.bfloat16, gen, lengths)
-    times = {}
+    times, bounds = {}, {}
+    hd, m = d // h, b * s
+    w_layer, w_block = 3 * d * d + d * d + 2 * d * INTER, 4 * d * d
+    bounds["k1_layer"] = bound({"bf16": 2 * m * w_layer + attn_flops(h, hd, s, lengths)},
+                               2 * (2 * m * d + w_layer))
+    bounds["k6_attn"] = bound({"bf16": 2 * m * 3 * d * d + attn_flops(h, hd, s, lengths)},
+                              2 * (2 * m * d + 3 * d * d))
     for key, cases in layer_cases(blk, x, mask, h).items():
         kernel, plain = getattr(kern, key), getattr(kern, key + "_plain")
         times[key] = paired_ms(lambda: [kernel(*a) for _, a in cases],
@@ -771,6 +835,10 @@ def timing_phase(blk, label):
                                     ("k3_block", torch.bfloat16, 1536, True)):
         lens = list(np.random.RandomState(SEED).randint(s_blk // 10, s_blk + 1, size=b))
         xb, mb = layer_inputs(b, s_blk, d, dt, gen, lens)
+        size = 4 if dt == torch.float32 else 2
+        bounds[key] = bound({"fp32" if size == 4 else "bf16":
+                             2 * b * s_blk * w_block + attn_flops(h, hd, s_blk, lens)},
+                            size * (3 * b * s_blk * d + w_block))
         variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK) if blocked else ("one_shot",)
         times[key] = paired_ms(lambda: ea.fused_block_attention(blk, xb, mb, h, 1e-6, variant),
                                lambda: ea.fused_block_attention_plain(blk, xb, mb, h, 1e-6, variant),
@@ -778,6 +846,10 @@ def timing_phase(blk, label):
     qkv, m16 = layer_inputs(TRAIN_BATCH, 500, 3 * d, torch.bfloat16, gen,
                             list(np.random.RandomState(SEED).randint(100, 501, size=TRAIN_BATCH)))
     g = torch.randn(TRAIN_BATCH, 500, d, generator=gen).to(DEVICE, torch.bfloat16)
+    valid16 = m16.sum(dim=1).tolist()
+    bounds["k4"] = bound({"bf16": attn_flops(h, hd, 500, valid16)}, 2 * TRAIN_BATCH * 500 * 4 * d)
+    bounds["k7"] = bound({"bf16": attn_flops(h, hd, 500, valid16, products=5)},
+                         2 * TRAIN_BATCH * 500 * 7 * d)
     times["k4"] = paired_ms(lambda: kern.attention_k4(qkv, m16, h),
                             lambda: kern.attention_plain(qkv, m16, h), 10)
     times["k7"] = paired_ms(lambda: kern.attention_bwd(qkv, m16, g, h),
@@ -785,6 +857,7 @@ def timing_phase(blk, label):
     lens = list(np.random.RandomState(SEED).randint(150, 1501, size=TRAIN_BATCH_30))
     q, m4 = layer_inputs(TRAIN_BATCH_30, 1500, d, torch.bfloat16, gen, lens)
     kv, _ = layer_inputs(TRAIN_BATCH_30, 1500, 2 * d, torch.bfloat16, gen, lens)
+    bounds["k5"] = bound({"bf16": attn_flops(h, hd, 1500, lens)}, 2 * TRAIN_BATCH_30 * 1500 * 4 * d)
     times["k5"] = paired_ms(lambda: ea.encoder_attention_blocked(q, kv, m4, h),
                             lambda: ea.encoder_attention_blocked_plain(q, kv, m4, h), 10)
     times["k6_attn"] = paired_ms(
@@ -792,6 +865,8 @@ def timing_phase(blk, label):
         lambda: ea.fused_ln_attention_plain(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6), 10)
     lens = list(np.random.RandomState(SEED).randint(153, 1537, size=b))
     x30, m30 = layer_inputs(b, 1536, d, torch.bfloat16, gen, lens)
+    bounds["k3_layer"] = bound({"bf16": 2 * b * 1536 * w_layer + attn_flops(h, hd, 1536, lens)},
+                               2 * (2 * b * 1536 * d + w_layer))
     variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK)
     times["k3_layer"] = paired_ms(lambda: ea.fused_layer(blk, x30, m30, h, 1e-6, variant),
                                   lambda: ea.fused_layer_plain(blk, x30, m30, h, 1e-6, variant), 5)
@@ -799,6 +874,11 @@ def timing_phase(blk, label):
     for frames in (1000, 3000):
         bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
         rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
+        bins = front.fft_size // 2 + 1
+        dft, mel = 2 * b * frames * front.window_length * 2 * bins, 2 * b * frames * bins * front.num_mels
+        nbytes = 4 * (rows.numel() + b * frames * front.num_mels)
+        bounds[f"log_mel_{frames}"] = bound({"fp32": dft + mel}, nbytes)
+        bounds[f"log_mel_fast_{frames}"] = bound({"bf16": 3 * dft, "fp32": mel}, nbytes)
         times[f"log_mel_{frames}"] = paired_ms(lambda: fused.fused_log_mel(rows, front, frames),
                                                lambda: fused.fused_log_mel_plain(rows, front, frames),
                                                10)
@@ -816,8 +896,139 @@ def timing_phase(blk, label):
             "log_mel_fast_1000": "K8′ log-mel (1000 frames)",
             "log_mel_fast_3000": "K8′ log-mel (3000 frames)"}
     for k, (km, pm) in times.items():
-        print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms  ({label})")
-    return times
+        bms = f"  bound {bounds[k][0]:.4f} ms ({bounds[k][1]})" if k in bounds else ""
+        print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms{bms}  ({label})")
+    return times, bounds
+
+
+def sdpa_backend(q, k, v, am) -> str:
+    """The CUDA kernels one SDPA call launches (its backend), by the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    picked = [n for n in names if any(w in n.lower() for w in ("sdpa", "fmha", "flash", "attention", "attn"))]
+    return "; ".join(n[:90] for n in (picked or names))
+
+
+def links_phase(blk, label):
+    """Phase 13, the redesigned kernels against one PyTorch call each, in
+    turns (kernel, library, library, kernel): the bf16 GEMM link at the four
+    10-s products (M = 32·496) and the 30-s QKV and o-proj (M = 32·1536)
+    against torch.matmul on the same operands (the epilogue is left out of
+    the library call); the bf16 attention link at S = 496 and 1536 (B = 32),
+    K4 (B=16, S=500) and K5 (B=4, S=1536, 1500 valid at most) against
+    F.scaled_dot_product_attention on the same Q, K, V as (B, H, S, Dh)
+    views with the key mask as a boolean attn_mask; K7 against SDPA's
+    backward (forward + backward less forward); K2's fp32 links, the
+    LayerNorm link and K8's three calls (torch.stft, the mel product, the
+    log)."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    d, h, hd = D, H, D // H
+    out = {}
+
+    def report(key, what, km, lm, ops, nbytes):
+        b_ms, by = bound(ops, nbytes)
+        flops = sum(ops.values())
+        out[key] = {"what": what, "ms": km, "library_ms": lm, "bound_ms": b_ms, "bound_by": by,
+                    "tflops": flops / km / 1e9, "library_tflops": flops / lm / 1e9,
+                    "share_of_bound": b_ms / km}
+        print(f"  {what:<44} kernel {km:.4f} ms ({flops / km / 1e9:.0f} TFLOP/s, "
+              f"{b_ms / km:.2f} of its bound {b_ms:.4f} ms)  library {lm:.4f} ms ({label})")
+
+    with torch.no_grad():
+        for seconds, m in ((10, BATCH * 496), (30, BATCH * 1536)):
+            shapes = [("qkv", 3 * d, d, kern.EPI_BIAS), ("o-proj", d, d, kern.EPI_BIAS_RESID_F32),
+                      ("mlp up", INTER, d, kern.EPI_BIAS_SILU),
+                      ("mlp down", d, INTER, kern.EPI_BIAS_CAST_ADD)]
+            for name, n, k, epi in shapes[: 4 if seconds == 10 else 2]:
+                a = torch.randn(m, k, generator=gen).to(DEVICE, torch.bfloat16)
+                w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(DEVICE, torch.bfloat16)
+                bias = torch.randn(n, generator=gen).to(DEVICE)
+                r = torch.randn(m, n, generator=gen).to(DEVICE, torch.bfloat16)
+                lm, km = paired_ms(lambda: torch.matmul(a, w), lambda: kern.gemm(a, w, bias, epi, r), 10)
+                resid = m * n * 2 if epi in (kern.EPI_BIAS_RESID_F32, kern.EPI_BIAS_CAST_ADD) else 0
+                report(f"gemm_{seconds}s_{name}", f"gemm {name}, {seconds} s (M={m} N={n} K={k})",
+                       km, lm, {"bf16": 2 * m * n * k}, 2 * (m * k + k * n + m * n) + resid + 4 * n)
+            del a, w, r
+
+        def attn_case(key, what, b, s, valid_max, split=False):
+            lens = list(np.random.RandomState(SEED).randint(valid_max // 10, valid_max + 1, size=b))
+            x = (1.5 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, torch.bfloat16)
+            mask = (torch.arange(s)[None, :] < torch.tensor(lens)[:, None]).to(DEVICE, torch.int32)
+            if split:
+                q, kv = x[..., :d].contiguous(), x[..., d:].contiguous()
+                kfn = lambda: kern.attention_k5(q, kv, mask, h)  # noqa: E731
+                qs, ks, vs = (kern.split_heads(t, h) for t in (q, *kv.chunk(2, dim=-1)))
+            else:
+                kfn = (lambda: kern.attention_k4(x, mask, h)) if key == "k4" else (  # noqa: E731
+                    lambda: kern.attention(x, mask, h))
+                qs, ks, vs = (kern.split_heads(t, h) for t in x.chunk(3, dim=-1))
+            am = (mask > 0)[:, None, None, :]
+            lm, km = paired_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), kfn, 10)
+            report(key, what, km, lm, {"bf16": attn_flops(h, hd, s, lens)}, 2 * b * s * 4 * d)
+            out[key]["sdpa_backend"] = sdpa_backend(qs, ks, vs, am)
+            return x, mask, lens
+
+        attn_case("attention_10s", "attention, 10 s (B=32, S=496)", BATCH, 496, 496)
+        attn_case("attention_30s", "attention, 30 s (B=32, S=1536)", BATCH, 1536, 1536)
+        qkv16, m16, lens16 = attn_case("k4", "K4 (B=16, S=500)", TRAIN_BATCH, 500, 500)
+        attn_case("k5", "K5 (B=4, S=1536, ≤ 1500 valid)", TRAIN_BATCH_30, 1536, 1500, split=True)
+        print(f"  SDPA backend: {out['attention_30s']['sdpa_backend']}")
+
+    # K7 against SDPA's backward: SDPA forward + backward less its forward
+    g = torch.randn(TRAIN_BATCH, 500, d, generator=gen).to(DEVICE, torch.bfloat16)
+    qh, kh, vh = (kern.split_heads(t, h).contiguous().requires_grad_() for t in qkv16.chunk(3, dim=-1))
+    go, am = kern.split_heads(g, h).contiguous(), (m16 > 0)[:, None, None, :]
+    with torch.enable_grad():
+        fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)  # noqa: E731
+        fwd_bwd = lambda: torch.autograd.grad(fwd(), (qh, kh, vh), go)  # noqa: E731
+        k1 = cuda_ms(lambda: kern.attention_bwd(qkv16, m16, g, h), 10)
+        fb = cuda_ms(fwd_bwd, 10) + cuda_ms(fwd_bwd, 10)
+        f = cuda_ms(fwd, 10) + cuda_ms(fwd, 10)
+        k2 = cuda_ms(lambda: kern.attention_bwd(qkv16, m16, g, h), 10)
+    report("k7", "K7 (B=16, S=500) vs SDPA backward", (k1 + k2) / 2, (fb - f) / 2,
+           {"bf16": attn_flops(h, hd, 500, lens16, products=5)}, 2 * TRAIN_BATCH * 500 * 7 * d)
+
+    with torch.no_grad():
+        m = BATCH * 496
+        for name, n, epi in (("qkv", 3 * d, kern.EPI_BIAS), ("o-proj", d, kern.EPI_BIAS_RESID_F32)):
+            a = torch.randn(m, d, generator=gen).to(DEVICE)
+            w = (torch.randn(d, n, generator=gen) / d ** 0.5).to(DEVICE)
+            bias, r = torch.randn(n, generator=gen).to(DEVICE), torch.randn(m, n, generator=gen).to(DEVICE)
+            lm, km = paired_ms(lambda: torch.matmul(a, w), lambda: kern.gemm(a, w, bias, epi, r), 5)
+            report(f"gemm_fp32_{name}", f"K2 link: fp32 gemm {name} (M={m} N={n})", km, lm,
+                   {"fp32": 2 * m * n * d}, 4 * (m * d + d * n + m * n))
+        lens = list(np.random.RandomState(SEED).randint(49, 497, size=BATCH))
+        x = torch.randn(BATCH, 496, 3 * d, generator=gen).to(DEVICE)
+        mask = (torch.arange(496)[None, :] < torch.tensor(lens)[:, None]).to(DEVICE, torch.int32)
+        qs, ks, vs = (kern.split_heads(t, h) for t in x.chunk(3, dim=-1))
+        am = (mask > 0)[:, None, None, :]
+        lm, km = paired_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
+                           lambda: kern.attention(x, mask, h), 5)
+        report("attention_fp32", "K2 link: fp32 attention (B=32, S=496)", km, lm,
+               {"fp32": attn_flops(h, hd, 496, lens)}, 4 * BATCH * 496 * 4 * d)
+        xb = torch.randn(BATCH, 496, d, generator=gen).to(DEVICE, torch.bfloat16)
+        sc, sh = torch.ones(d, device=DEVICE), torch.zeros(d, device=DEVICE)
+        lm, km = paired_ms(lambda: F.layer_norm(xb, (d,), sc.bfloat16(), sh.bfloat16(), 1e-6),
+                           lambda: kern.layer_norm(xb, sc, sh, 1e-6), 10)
+        report("layer_norm", "LayerNorm link (bf16, B=32, S=496)", km, lm, {}, 2 * 2 * BATCH * 496 * d)
+
+        front = configs.FrontendConfig()
+        frames, bins = 1000, front.fft_size // 2 + 1
+        bufs = (0.1 * torch.randn(BATCH, frames * 160 + front.window_length, generator=gen)).to(DEVICE)
+        win = torch.hann_window(front.window_length, periodic=True, device=DEVICE)
+        melm = torch.rand(bins, front.num_mels, generator=gen).to(DEVICE)
+        stft = lambda: torch.stft(bufs, front.fft_size, front.hop_length, front.window_length, win,  # noqa: E731
+                                  center=False, return_complex=True).abs()
+        spec = stft().transpose(1, 2)[:, :frames].contiguous()
+        mel = spec @ melm
+        three = {"torch.stft + abs": cuda_ms(stft, 10), "mel product": cuda_ms(lambda: spec @ melm, 10),
+                 "log": cuda_ms(lambda: torch.log(mel + front.log_offset), 10)}
+        out["k8_library_calls"] = three
+        print("  K8 as three PyTorch calls (B=32, 1000 frames): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in three.items()) + f" ({label})")
+    return out
 
 
 def clips_per_s(engine, wavs, runs=2):
@@ -845,8 +1056,13 @@ def run() -> dict:
     kern.load_library()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for line in kern.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
             print(f"  ptxas: {line.strip()}")
+    hgmma = check_sass()
+    silu_bad = kern.silu_epilogue_mismatches()
+    print(f"  bf16 GEMM silu epilogue vs apply_epilogue over all 2^32 fp32 inputs: {silu_bad} "
+          f"results differ")
+    check(silu_bad == 0, "the bf16 GEMM's silu epilogue is not apply_epilogue's")
 
     blk = ViTBlock(D, INTER, torch.Generator().manual_seed(SEED)).to(DEVICE)
     errs = kernel_phase(blk)
@@ -966,9 +1182,10 @@ def run() -> dict:
     rates30 = clips_per_s(engine30, bench30)
     print(f"  embed_audio {rates30[0]:.1f} / {rates30[1]:.1f} clips/s (30-s clips, bf16, "
           f"batch {BATCH}, {len(bench30)} clips per run; {label})")
-    times = timing_phase(blk, label)
-    times["k8"] = times["log_mel_1000"]
-    times["k8_fast"] = times["log_mel_fast_1000"]
+    times, bounds = timing_phase(blk, label)
+    times["k8"], bounds["k8"] = times["log_mel_1000"], bounds["log_mel_1000"]
+    times["k8_fast"], bounds["k8_fast"] = times["log_mel_fast_1000"], bounds["log_mel_fast_1000"]
+    links = links_phase(blk, label)
 
     print(f"  bf16 10-s training step {train_bf16['median_step_ms']:.2f} ms/step (median of 6, "
           f"B={TRAIN_BATCH}), peak {train_bf16['peak_gib']:.2f} GiB ({label})")
@@ -979,9 +1196,14 @@ def run() -> dict:
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
                 "K5": "k5", "K6": "k6_attn", "K7": "k7", "K8": "k8", "K8′": "k8_fast"}
+    # one PyTorch call computes K4's, K5's and K7's function; the chains and
+    # K8 / K8′ have none (their links' library times are under "links")
+    lib_key = {"K4": "k4", "K5": "k5", "K7": "k7"}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": path[name][key], "max_abs_err": errs[err_key[name]],
-                "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1]}
+                "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1],
+                "bound_ms": bounds[time_key[name]][0], "bound_by": bounds[time_key[name]][1],
+                "library_ms": links[lib_key[name]]["library_ms"] if name in lib_key else None}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -990,6 +1212,7 @@ def run() -> dict:
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
             "log_mel_fast_3000": {"ms": times["log_mel_fast_3000"][0],
                                   "plain_ms": times["log_mel_fast_3000"][1]},
+            "links": links, "hgmma": hgmma, "silu_epilogue_mismatches": silu_bad,
             "variant_paths": variants, "inference_grads": grads,
             "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30},
             "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},

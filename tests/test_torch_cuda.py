@@ -1,7 +1,11 @@
 """The CUDA kernels on the card (K1's chain, K2/K3's block chain, K3′'s
 blocked layer, K6's LN1 → QKV → attention, K4, K5, K4's backward K7, K8's
 log-mel and its bf16×3 form K8′), against their plain PyTorch versions,
-and the fused routes' gradients on the card.
+and the fused routes' gradients on the card; the Hopper bf16 GEMM (every
+epilogue, ragged M, N and K, the caco_base shapes, the double rounding of
+EPI_BIAS_CAST_ADD, its silu against apply_epilogue over every fp32 input)
+and the Hopper bf16 attention forward (Dh 96 and causal Dh 64 at S = 1 …
+1536, the 80 clamp, an all-masked clip, K5's separate strides).
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -346,3 +350,125 @@ def test_fused_routes_take_gradients_on_the_card(cuda):
         assert grads[0].shape == grads[1].shape, name
         rel = float((grads[1] - grads[0]).norm() / grads[0].norm())
         assert rel <= 1e-4, (name, rel)
+
+
+# ---- the Hopper bf16 GEMM (wgmma, TMA ring, ping-pong warpgroups) --------
+
+def _gemm_inputs(m, n, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, k, generator=gen).bfloat16()
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).bfloat16()
+    bias = torch.randn(n, generator=gen)
+    r = torch.randn(m, n, generator=gen).bfloat16()
+    return a, w, bias, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [kern.EPI_BIAS, kern.EPI_BIAS_RESID_F32, kern.EPI_BIAS_SILU,
+                                      kern.EPI_BIAS_CAST_ADD])
+@pytest.mark.parametrize("m,n,k", [(300, 2304, 768),   # M not a multiple of the 128-row tile
+                                   (100, 104, 168),    # M < 128, N = 8·13, K = 8·21
+                                   (1, 8, 8),
+                                   (4000, 768, 3072)])  # several tiles per block
+def test_bf16_gemm_matches_plain(cuda, epilogue, m, n, k):
+    a, w, bias, r = _gemm_inputs(m, n, k, 20)
+    got = kern.gemm(a.to(cuda), w.to(cuda), bias.to(cuda), epilogue, r.to(cuda))
+    torch.cuda.synchronize()
+    _check(got, kern.gemm_plain(a, w, bias, epilogue, r), TOL_K45["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,epilogue", [(32 * 496, 2304, 768, kern.EPI_BIAS),
+                                            (32 * 496, 768, 768, kern.EPI_BIAS_RESID_F32),
+                                            (32 * 496, 3072, 768, kern.EPI_BIAS_SILU),
+                                            (32 * 496, 768, 3072, kern.EPI_BIAS_CAST_ADD),
+                                            (32 * 1536, 2304, 768, kern.EPI_BIAS),
+                                            (32 * 1536, 768, 768, kern.EPI_BIAS_RESID_F32)])
+def test_bf16_gemm_at_caco_base_shapes(cuda, m, n, k, epilogue):
+    """The four products of a 10-s layer and the 30-s QKV and o-proj."""
+    a, w, bias, r = (t.to(cuda) for t in _gemm_inputs(m, n, k, 21))
+    got = kern.gemm(a, w, bias, epilogue, r)
+    want = kern.gemm_plain(a, w, bias, epilogue, r)
+    atol, rtol = TOL_K45["bfloat16"]
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all() and bool((err <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.cuda
+def test_bf16_gemm_cast_add_rounds_twice(cuda):
+    """EPI_BIAS_CAST_ADD rounds acc + b to bf16 before adding the residual:
+    h = 1 + 2^-8 + 2^-10 rounds to 1 + 2^-7, plus r = -2^-7 gives exactly 1,
+    where one rounding of h + r would give 1 - 2^-8."""
+    m, n, k = 130, 136, 8
+    a = torch.zeros(m, k)
+    a[:, 0] = 1.0
+    w = torch.zeros(k, n)
+    w[0] = 1.0
+    bias = torch.full((n,), 2.0 ** -8 + 2.0 ** -10)
+    r = torch.full((m, n), -(2.0 ** -7)).bfloat16()
+    got = kern.gemm(a.bfloat16().to(cuda), w.bfloat16().to(cuda), bias.to(cuda),
+                    kern.EPI_BIAS_CAST_ADD, r.to(cuda)).cpu()
+    assert (got == 1.0).all()
+    assert (kern.gemm_plain(a.bfloat16(), w.bfloat16(), bias, kern.EPI_BIAS_CAST_ADD, r) == 1.0).all()
+    assert float(torch.tensor(1 + 2.0 ** -8 + 2.0 ** -10 - 2.0 ** -7).bfloat16()) == 1 - 2.0 ** -8
+
+
+@pytest.mark.cuda
+def test_bf16_gemm_silu_epilogue_is_apply_epilogue(cuda):
+    """The branch-free silu of the bf16 GEMM against apply_epilogue's
+    division over every fp32 input: no result differs in any bit."""
+    assert kern.silu_epilogue_mismatches(cuda) == 0
+
+
+# ---- the Hopper bf16 attention forward (wgmma, TMA K/V ring) --------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads,causal", [(96, 8, False), (64, 12, True)])
+@pytest.mark.parametrize("s", [1, 63, 496, 500, 1536])
+def test_bf16_attention_matches_plain(cuda, hd, heads, causal, s):
+    """Ragged tiles (S = 1, 63, 500), the chains' S = 496 and 1536, padded
+    keys, and an all-masked clip that gives exactly 0."""
+    qkv, mask, _ = _qkv(3, s, heads * hd, [s, max(s // 3, 1), 0], torch.bfloat16, 22)
+    got = kern.attention_k4(qkv.to(cuda), mask.to(cuda), heads, causal)
+    torch.cuda.synchronize()
+    _check(got, kern.attention_plain(qkv, mask, heads, causal), TOL_K45["bfloat16"])
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads,causal", [(96, 8, False), (64, 12, True)])
+@pytest.mark.parametrize("s", [500, 1536])
+def test_bf16_attention_clamp_matches_plain(cuda, hd, heads, causal, s):
+    """Logits far above the clamp of 80 in most rows, and far below it.
+    Rows whose every attended logit lies below -70 are compared apart:
+    there p·v·2^-24 falls below fp32's normal range, which the tensor cores
+    flush (the output is 0 or finite), while the plain version on the CPU
+    keeps subnormals."""
+    qkv, mask, _ = _qkv(2, s, heads * hd, [s, s // 2], torch.bfloat16, 23, scale=8.0)
+    got = kern.attention_k4(qkv.to(cuda), mask.to(cuda), heads, causal).cpu()
+    want = kern.attention_plain(qkv, mask, heads, causal)
+    q, k, _ = (kern.split_heads(t, heads).float() for t in qkv.chunk(3, dim=-1))
+    qs = (q * kern.q_scale(hd, torch.bfloat16)).bfloat16().float()
+    top = torch.minimum(qs @ k.transpose(-1, -2), kern._kbias(mask, s, causal)).amax(dim=-1)
+    normal = kern.merge_heads((top > -70.0)[..., None].expand(-1, -1, -1, hd))
+    assert torch.isfinite(got).all() and normal.float().mean() > 0.99
+    assert bool((top >= 80.0).float().mean() > 0.3)
+    atol, rtol = 6e-2, 2e-2
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs())[normal].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [63, 500, 1536])
+def test_k5_separate_strides_match_plain(cuda, s):
+    """K5's operands: Q (B, S, D) and K|V (B, S, 2D), rows D and 2D apart."""
+    gen = torch.Generator().manual_seed(24)
+    q = (1.5 * torch.randn(3, s, 768, generator=gen)).bfloat16()
+    kv = (1.5 * torch.randn(3, s, 1536, generator=gen)).bfloat16()
+    mask = (torch.arange(s)[None, :] < torch.tensor([s, s // 3, 0])[:, None]).to(torch.int32)
+    kern.reset_launches()
+    got = kern.attention_k5(q.to(cuda), kv.to(cuda), mask.to(cuda), 8)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k5"] == 1
+    _check(got, kern.attention_split_plain(q, kv, mask, 8), TOL_K45["bfloat16"])
+    assert (got[2] == 0).all()

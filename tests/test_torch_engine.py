@@ -61,7 +61,8 @@ def engines():
     out = {}
     for name, jd, td in (("float32", None, None), ("bfloat16", jnp.bfloat16, torch.bfloat16)):
         out[name] = (JaxEngine(jc, jparams, tokenizer=_byte_tokenizer(jtok), dtype=jd, **kw),
-                     CacoEngine(tc, model, tokenizer=_byte_tokenizer(ttok), dtype=td, **kw))
+                     CacoEngine(tc, model, tokenizer=_byte_tokenizer(ttok), dtype=td, device="cpu",
+                                **kw))
     return out
 
 

@@ -47,7 +47,7 @@ def _engines(tiny, dtype, **kw):
     jc, tc, jparams, model = tiny
     jd, td = DTYPES[dtype]
     return (JaxEngine(jc, jparams, dtype=jd, batch_size=4, **kw),
-            CacoEngine(tc, model, dtype=td, batch_size=4, **kw))
+            CacoEngine(tc, model, dtype=td, batch_size=4, device="cpu", **kw))
 
 
 def _wavs(seconds, seed=0):
@@ -95,7 +95,8 @@ def test_fused_frontend_engine_matches_jax(tiny, dtype):
     ref, got = jax_engine.embed_audio(wavs), engine.embed_audio(wavs)
     np.testing.assert_allclose(got, ref, atol=TOL[dtype])
     if dtype == "float32":
-        unfused = CacoEngine(engine.cfg, engine.params, batch_size=4, buffer_seconds=10.0)
+        unfused = CacoEngine(engine.cfg, engine.params, batch_size=4, buffer_seconds=10.0,
+                             device="cpu")
         np.testing.assert_allclose(got, unfused.embed_audio(wavs), atol=1e-5)
 
 
@@ -123,7 +124,7 @@ def test_generator_input_and_bounded_dispatch_window(tiny):
     generator gives the list's embeddings, and no more than the window is
     ever in flight (and the window is used)."""
     _, tc, _, model = tiny
-    engine = CacoEngine(tc, model, batch_size=2, buffer_seconds=1.0)
+    engine = CacoEngine(tc, model, batch_size=2, buffer_seconds=1.0, device="cpu")
     wavs = _wavs([1, 0.4, 0.8, 1.5, 0.2, 1, 0.7, 0.9, 0.1, 1, 0.5])
     from_list = engine.embed_audio(wavs)
     assert engine.peak_in_flight == DISPATCH_WINDOW == 4
@@ -133,3 +134,16 @@ def test_generator_input_and_bounded_dispatch_window(tiny):
     assert from_list.shape == (11, 32)
     engine.embed_audio(wavs[:3])
     assert engine.peak_in_flight == 2
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(tiny, monkeypatch):
+    """The default device is the card; without one the default raises
+    (it never falls back to the CPU), and device="cpu" runs."""
+    import inspect
+
+    _, tc, _, model = tiny
+    assert inspect.signature(CacoEngine).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CacoEngine(tc, model, batch_size=2, buffer_seconds=1.0)
+    assert CacoEngine(tc, model, batch_size=2, buffer_seconds=1.0, device="cpu").device.type == "cpu"
