@@ -42,10 +42,12 @@
 //   - p = ex2(min(l, bias)·log2 e), flushing p below 2^-126 (a logit under
 //     ≈ -87) to 0 — such a row's P·V falls below fp32's normal range on the
 //     tensor cores anyway; the max-free softmax needs no rescale.
-// fp32: a plain shared-memory loop (one lane per key for the logits, one
-// lane per output column for P·V); full fp32 has no tensor-core path.
-// Causal: key tiles past the q tile's last row are skipped (their p is 0);
-// so are key tiles past a clip's last valid key (bf16).
+// bf16 at any other head dim (1..128): attention_bf16_mma_kernel, mma.sync
+// with the head row rounded up to 16, 32, 64, 96 or 128 zero-filled columns.
+// fp32 (attention_f32_kernel): a register-tiled flash attention on the FMA
+// units, described above the kernel; Dh rounded up to 32, 64, 96 or 128.
+// Every kernel skips key tiles past a clip's last valid key and, causal,
+// past the q tile's last row (their p is 0).
 //
 // Bound on the card: 4·H·Dh·S flops per valid key of each clip on the
 // tensor cores (all keys valid at S = 1536, B = 32: 231.9 GFLOP per layer,
@@ -59,7 +61,6 @@ constexpr int AQ = 128;      // query rows per block (2 consumer warpgroups x 64
 constexpr int AKT = 128;     // keys per tile
 constexpr int ASTAGES = 2;
 constexpr int ATT_WG_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int ATT_THREADS = 128;     // the fp32 kernel
 constexpr int ABOX = 32;     // columns per TMA box: 64 bytes, 64-byte swizzle
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -92,6 +93,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The clip's last valid key before k_lim, -1 if none (a block-wide scan:
+// every thread calls it; `slot` is a shared int).  Key tiles past it hold
+// only p = 0 and are skipped.
+__device__ __forceinline__ int last_valid_key(const int* mask_row, int k_lim, int* slot) {
+  if (threadIdx.x == 0) *slot = -1;
+  __syncthreads();
+  int last = -1;
+  for (int j = threadIdx.x; j < k_lim; j += blockDim.x)
+    if (mask_row[j] > 0) last = j;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  if ((threadIdx.x & 31) == 0 && last >= 0) atomicMax(slot, last);
+  __syncthreads();
+  return *slot;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(ATT_WG_THREADS, 1)
     attention_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -105,10 +122,7 @@ __global__ void __launch_bounds__(ATT_WG_THREADS, 1)
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AQ;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  int k_end = causal ? min(S, q0 + AQ) : S;
-
   if (threadIdx.x == 0) {
-    sm.last_key = -1;
     prefetch_tensor_map(&map_q);
     prefetch_tensor_map(&map_k);
     prefetch_tensor_map(&map_v);
@@ -124,18 +138,9 @@ __global__ void __launch_bounds__(ATT_WG_THREADS, 1)
 #pragma unroll
     for (int c = 0; c < C; ++c) tma_load_3d(sm.q[c], &map_q, &sm.qbar, h * HD + c * ABOX, q0, b);
   }
-  __syncthreads();
-  // Key tiles past the clip's last valid key hold only p = 0 and are skipped.
-  {
-    int last = -1;
-    for (int j = threadIdx.x; j < k_end; j += ATT_WG_THREADS)
-      if (mask[static_cast<size_t>(b) * S + j] > 0) last = j;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
-    if (lane == 0 && last >= 0) atomicMax(&sm.last_key, last);
-  }
-  __syncthreads();
-  k_end = min(k_end, sm.last_key + 1);
+  // (the scan's first barrier also publishes the mbarrier inits)
+  const int k_lim = causal ? min(S, q0 + AQ) : S;
+  const int k_end = min(k_lim, last_valid_key(mask + static_cast<size_t>(b) * S, k_lim, &sm.last_key) + 1);
 
   if (wg == 0) {  // producer warp
     setmaxnreg_dec<40>();
@@ -300,114 +305,405 @@ cudaError_t launch_attention_bf16(const AttnArgs& a, int B, cudaStream_t st) {
   return cudaSuccess;
 }
 
-constexpr int FQ = 32;      // query rows per block (4 warps x 8)
-constexpr int FK = 32;      // keys per tile: one per lane
-constexpr int F_HDMAX = 96;  // 36.5 KB of static shared memory
+// ---- bf16 at head dims other than 64 and 96: mma.sync m16n8k16 --------------
+// One block of 4 warps per (64 query rows, head, batch row), each warp 16
+// rows with q in registers; K and V tiles of 32 keys in shared memory, the
+// head row rounded up to HDP columns with zeros (zero columns add exact
+// zeros to every product); P goes from the logit accumulators straight into
+// the A fragments of P·V.
+constexpr int MQ = 64, MKT = 32, M_THREADS = 128;
 
-__global__ void __launch_bounds__(ATT_THREADS) attention_f32_kernel(AttnArgs a, int HD) {
-  __shared__ float Qs[FQ][F_HDMAX];
-  __shared__ float Ks[FK][F_HDMAX + 1];  // +1: lanes read distinct banks
-  __shared__ float Vs[FK][F_HDMAX];
-  __shared__ float kbias[FK];
+template <int HDP>
+__global__ void __launch_bounds__(M_THREADS)
+    attention_bf16_mma_kernel(AttnArgs a, int HD, int vec) {
+  constexpr int LD = HDP + 8, CH = HDP / 8;
+  __shared__ __align__(16) bf16 Qs[MQ * LD];
+  __shared__ __align__(16) bf16 Ks[MKT * LD];
+  __shared__ __align__(16) bf16 Vs[MKT * LD];
+  __shared__ float kbias[MKT];
+  __shared__ int last_key;
 
+  const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * MQ;
+  const size_t row0 = static_cast<size_t>(b) * S, hoff = static_cast<size_t>(h) * HD;
+  const bf16* qb = static_cast<const bf16*>(a.q) + row0 * a.q_row + hoff;
+  const bf16* kb = static_cast<const bf16*>(a.k) + row0 * a.kv_row + hoff;
+  const bf16* vb = static_cast<const bf16*>(a.v) + row0 * a.kv_row + hoff;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+
+  // q scaled in the compute dtype
+  for (int c = tid; c < MQ * CH; c += M_THREADS) {
+    const int r = c / CH, ch = c % CH, s = q0 + r;
+    uint4 qv = load_cols8(qb + static_cast<size_t>(s) * a.q_row, ch * 8, HD, vec, s < S);
+    bf16* e = reinterpret_cast<bf16*>(&qv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
+    *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
+  }
+  const int k_lim = a.causal ? min(S, q0 + MQ) : S;
+  const int k_end = min(k_lim, last_valid_key(a.mask + row0, k_lim, &last_key) + 1);
+  unsigned qf[HDP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) frag_a(qf[kk], Qs, LD, warp * 16, kk * 16);
+
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int n = 0; n < HDP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float rowsum[2] = {0.f, 0.f};
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  for (int k0 = 0; k0 < k_end; k0 += MKT) {
+    __syncthreads();  // every warp is done with the previous tile
+    for (int c = tid; c < MKT * CH; c += M_THREADS) {
+      const int r = c / CH, ch = c % CH, s = k0 + r;
+      const size_t off = static_cast<size_t>(s) * a.kv_row;
+      *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(kb + off, ch * 8, HD, vec, s < S);
+      uint4 vv = load_cols8(vb + off, ch * 8, HD, vec, s < S);
+      bf16* e = reinterpret_cast<bf16*>(&vv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * VSCALE);
+      *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = vv;
+    }
+    for (int j = tid; j < MKT; j += M_THREADS) {
+      const int s = k0 + j;
+      kbias[j] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
+    }
+    __syncthreads();
+    float sc[MKT / 8][4];
+#pragma unroll
+    for (int n = 0; n < MKT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+#pragma unroll
+      for (int nj = 0; nj < MKT / 16; ++nj) {
+        unsigned kf[4];
+        frag_b_nk(kf, Ks, LD, nj * 16, kk * 16);
+        mma_bf16(sc[2 * nj], qf[kk], kf[0], kf[1]);
+        mma_bf16(sc[2 * nj + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < MKT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        float kbv = kbias[col];
+        if (a.causal && k0 + col > row[e >> 1]) kbv = NEG_INF;
+        const float p = expf(fminf(sc[n][e], kbv));
+        rowsum[e >> 1] += p;
+        sc[n][e] = p;
+      }
+    unsigned pf[MKT / 16][4];
+    acc_to_a<MKT / 8>(pf, sc);
+#pragma unroll
+    for (int kk = 0; kk < MKT / 16; ++kk) {
+#pragma unroll
+      for (int dj = 0; dj < HDP / 16; ++dj) {
+        unsigned vf[4];
+        frag_b_kn(vf, Vs, LD, kk * 16, dj * 16);
+        mma_bf16(o[2 * dj], pf[kk], vf[0], vf[1]);
+        mma_bf16(o[2 * dj + 1], pf[kk], vf[2], vf[3]);
+      }
+    }
+  }
+
+  const size_t D = static_cast<size_t>(a.H) * HD;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float rs = fmaxf(quad_sum(rowsum[half]), ROWSUM_FLOOR);
+    const int s = row[half];
+    if (s >= S) continue;
+    bf16* orow = static_cast<bf16*>(a.out) + (row0 + s) * D + hoff;
+#pragma unroll
+    for (int n = 0; n < HDP / 8; ++n)
+      store_cols2(orow, n * 8 + 2 * t, HD, vec, (o[n][half * 2] / rs) * INV_VSCALE,
+                  (o[n][half * 2 + 1] / rs) * INV_VSCALE);
+  }
+}
+
+// ---- fp32: a register-tiled flash attention on the FMA units ----------------
+// Full fp32 has no tensor-core product (TF32 keeps 10 mantissa bits), so
+// the bound is 4·Dh FMAs per (query, valid key) at 67 TFLOP/s.  One block
+// of 256 threads takes 64 query rows of one head; key tiles of 64:
+//   - each thread owns a 4x4 micro-tile of the logits (rows ty + 16i, keys
+//     tx + 16j) and a 4 x HDP/16 tile of the output (rows ty + 16i, column
+//     pairs 2tx + 32c), so one float4 shared load feeds 4 FMAs for each
+//     of its rows (Q·Kᵀ) and one P float4 16 (P·V);
+//   - Q (scaled once), one K and one V tile live in shared memory as rows
+//     of HDP + 4 floats: a warp's threads are 4 query rows x 8 keys, and 8
+//     consecutive rows 4 banks apart make every float4 read one wavefront;
+//   - the K and V buffers form a 2-stage ring of their own: V of tile t
+//     lands by cp.async while Q·Kᵀ of tile t runs, K of tile t + 1 while
+//     P·V of tile t runs (16-byte copies where the rows allow, zero-filled
+//     past S and Dh); with one buffer each a block needs 94 KB at Dh 96,
+//     so two blocks share an SM and hide each other's barriers;
+//   - V·2^-24 is applied in shared memory by the thread that copied each
+//     element (exact in fp32, the Pallas order); p = exp(min(l, bias)) in
+//     registers, staged in shared memory for P·V; the max-free softmax
+//     needs no rescale between tiles;
+//   - key tiles past the clip's last valid key (and, causal, past the
+//     block's last query) are skipped.
+constexpr int FQ = 64, FKT = 64, F_THREADS = 256;
+constexpr int F_PLD = FKT + 8;  // P rows 8 banks apart: a warp's writes are conflict-free
+
+template <int HDP>
+struct F32AttnSmem {
+  static constexpr int LD = HDP + 4;
+  float q[FQ * LD];
+  float k[FKT * LD];
+  float v[FKT * LD];
+  float p[FQ * F_PLD];
+  float kbias[FKT];
+  float rowsum[2][FQ];  // the two warps that share a query row
+  int last_key;
+};
+
+// ROWS rows from r0 of an fp32 head slice (row stride `stride`) into shared
+// rows HDP + 4 apart, zeros past S rows and hd columns; 16-byte copies when
+// `vec` (hd and the strides multiples of 4, 16-byte aligned bases).
+template <int HDP, int ROWS>
+__device__ __forceinline__ void f32_rows_async(float* dst, const float* src, size_t stride, int r0,
+                                               int S, int hd, bool vec) {
+  constexpr int LD = HDP + 4;
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * HDP / 4; e += F_THREADS) {
+      const int r = e / (HDP / 4), c = (e % (HDP / 4)) * 4, s = r0 + r;
+      const bool ok = s < S && c < hd;
+      cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(s) * stride + c : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * HDP; e += F_THREADS) {
+      const int r = e / HDP, c = e % HDP, s = r0 + r;
+      const bool ok = s < S && c < hd;
+      cp_async4(dst + r * LD + c, ok ? src + static_cast<size_t>(s) * stride + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// The elements this thread copied with f32_rows_async (the same walk),
+// times `scale`, once its copies have landed (cp_async_wait).
+template <int HDP, int ROWS>
+__device__ __forceinline__ void f32_rows_scale(float* dst, bool vec, float scale) {
+  constexpr int LD = HDP + 4;
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * HDP / 4; e += F_THREADS) {
+      float4* p = reinterpret_cast<float4*>(dst + (e / (HDP / 4)) * LD + (e % (HDP / 4)) * 4);
+      float4 x = *p;
+      x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+      *p = x;
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * HDP; e += F_THREADS) dst[(e / HDP) * LD + e % HDP] *= scale;
+  }
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
+    attention_f32_kernel(AttnArgs a, int HD, int vec) {
+  constexpr int LD = HDP + 4, CP = HDP / 32;  // column pairs per thread
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  F32AttnSmem<HDP>& sm = *reinterpret_cast<F32AttnSmem<HDP>*>(smem_f32);
   const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ;
-  const size_t row0 = static_cast<size_t>(b) * S;
-  const float* qb = static_cast<const float*>(a.q) + row0 * a.q_row + h * HD;
-  const float* kb = static_cast<const float*>(a.k) + row0 * a.kv_row + h * HD;
-  const float* vb = static_cast<const float*>(a.v) + row0 * a.kv_row + h * HD;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row0 = static_cast<size_t>(b) * S, hoff = static_cast<size_t>(h) * HD;
+  const float* qb = static_cast<const float*>(a.q) + row0 * a.q_row + hoff;
+  const float* kb = static_cast<const float*>(a.k) + row0 * a.kv_row + hoff;
+  const float* vb = static_cast<const float*>(a.v) + row0 * a.kv_row + hoff;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
 
-  for (int c = tid; c < FQ * HD; c += ATT_THREADS) {
-    const int r = c / HD, d = c % HD, s = q0 + r;
-    Qs[r][d] = s < S ? qb[s * a.q_row + d] * a.q_scale : 0.f;
-  }
-
-  float o[8][F_HDMAX / 32];
-  float rowsum[8];
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    rowsum[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < F_HDMAX / 32; ++i) o[rr][i] = 0.f;
-  }
-  const int k_end = a.causal ? min(S, q0 + FQ) : S;
-
-  for (int k0 = 0; k0 < k_end; k0 += FK) {
-    __syncthreads();
-    for (int c = tid; c < FK * HD; c += ATT_THREADS) {
-      const int r = c / HD, d = c % HD, s = k0 + r;
-      Ks[r][d] = s < S ? kb[s * a.kv_row + d] : 0.f;
-      Vs[r][d] = s < S ? vb[s * a.kv_row + d] * VSCALE : 0.f;
+  f32_rows_async<HDP, FQ>(sm.q, qb, a.q_row, q0, S, HD, vec);
+  cp_async_commit();
+  const int k_lim = a.causal ? min(S, q0 + FQ) : S;
+  const int k_end = min(k_lim, last_valid_key(a.mask + row0, k_lim, &sm.last_key) + 1);
+  const int n_tiles = (k_end + FKT - 1) / FKT;
+  auto load_k = [&](int t) {
+    const int k0 = t * FKT;
+    f32_rows_async<HDP, FKT>(sm.k, kb, a.kv_row, k0, S, HD, vec);
+    for (int j = tid; j < FKT; j += F_THREADS) {
+      const int s = k0 + j;
+      sm.kbias[j] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
     }
-    if (tid < FK) {
-      const int s = k0 + tid;
-      kbias[tid] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
+  };
+  if (n_tiles > 0) load_k(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's Q copies have landed
+  f32_rows_scale<HDP, FQ>(sm.q, vec, a.q_scale);
+
+  float o[4][CP][2], rs[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    rs[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) o[i][c][0] = o[i][c][1] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * FKT;
+    cp_async_wait<0>();
+    __syncthreads();  // K of tile t and scaled Q are visible; P·V of tile t - 1 is done
+    f32_rows_async<HDP, FKT>(sm.v, vb, a.kv_row, k0, S, HD, vec);
+    cp_async_commit();
+
+    // logits: rows ty + 16i x keys tx + 16j
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HDP; d += 4) {
+      float4 qa[4], ka[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(&sm.q[(ty + 16 * i) * LD + d]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ka[j] = *reinterpret_cast<const float4*>(&sm.k[(tx + 16 * j) * LD + d]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(qa[i].x, ka[j].x, sc[i][j]);
+          sc[i][j] = fmaf(qa[i].y, ka[j].y, sc[i][j]);
+          sc[i][j] = fmaf(qa[i].z, ka[j].z, sc[i][j]);
+          sc[i][j] = fmaf(qa[i].w, ka[j].w, sc[i][j]);
+        }
     }
-    __syncthreads();
 #pragma unroll
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      float l = 0.f;
-      for (int d = 0; d < HD; ++d) l = fmaf(Qs[r][d], Ks[lane][d], l);
-      float kbv = kbias[lane];
-      if (a.causal && k0 + lane > q0 + r) kbv = NEG_INF;
-      const float p = expf(fminf(l, kbv));
-      rowsum[rr] += p;
-      for (int j = 0; j < FK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < F_HDMAX / 32; ++i) {
-          const int d = lane + 32 * i;
-          if (d < HD) o[rr][i] = fmaf(pj, Vs[j][d], o[rr][i]);
+      for (int j = 0; j < 4; ++j) {
+        const int kc = tx + 16 * j;
+        float kbv = sm.kbias[kc];
+        if (a.causal && k0 + kc > q0 + ty + 16 * i) kbv = NEG_INF;
+        const float p = expf(fminf(sc[i][j], kbv));
+        rs[i] += p;
+        sm.p[(ty + 16 * i) * F_PLD + kc] = p;
+      }
+    cp_async_wait<0>();
+    f32_rows_scale<HDP, FKT>(sm.v, vec, VSCALE);  // V·2^-24, as the Pallas kernel pre-scales V
+    __syncthreads();  // P and the scaled V are visible; Q·Kᵀ of tile t is done
+    if (t + 1 < n_tiles) load_k(t + 1);
+    cp_async_commit();
+
+    // o += P · V·2^-24: rows ty + 16i x column pairs 2tx + 32c
+#pragma unroll 2
+    for (int kk = 0; kk < FKT; kk += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(&sm.p[(ty + 16 * i) * F_PLD + kk]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = &sm.v[(kk + u) * LD + 2 * tx];
+#pragma unroll
+        for (int c = 0; c < CP; ++c) {
+          const float2 vv = *reinterpret_cast<const float2*>(&vr[32 * c]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pu = f4_at(pa[i], u);
+            o[i][c][0] = fmaf(pu, vv.x, o[i][c][0]);
+            o[i][c][1] = fmaf(pu, vv.y, o[i][c][1]);
+          }
         }
       }
     }
   }
 
-  const int D = a.H * HD;
+  // row sums: the 8 lanes of a warp that share a row, then the two warps
 #pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    const int s = q0 + warp * 8 + rr;
-    const float rs = fmaxf(warp_sum(rowsum[rr]), ROWSUM_FLOOR);
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], off);
+    if ((lane & 7) == 0) sm.rowsum[warp & 1][ty + 16 * i] = rs[i];
+  }
+  __syncthreads();
+  const size_t D = static_cast<size_t>(a.H) * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i, s = q0 + r;
     if (s >= S) continue;
-    float* orow = static_cast<float*>(a.out) + (row0 + s) * D + h * HD;
+    const float sum = fmaxf(sm.rowsum[0][r] + sm.rowsum[1][r], ROWSUM_FLOOR);
+    float* orow = static_cast<float*>(a.out) + (row0 + s) * D + hoff;
 #pragma unroll
-    for (int i = 0; i < F_HDMAX / 32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) orow[d] = (o[rr][i] / rs) * INV_VSCALE;
+    for (int c = 0; c < CP; ++c) {
+      const int col = 2 * tx + 32 * c;
+      if (col < HD) orow[col] = (o[i][c][0] / sum) * INV_VSCALE;
+      if (col + 1 < HD) orow[col + 1] = (o[i][c][1] / sum) * INV_VSCALE;
     }
   }
+}
+
+template <int HDP>
+cudaError_t launch_attention_mma(const AttnArgs& a, int B, int HD, int vec, cudaStream_t st) {
+  attention_bf16_mma_kernel<HDP><<<dim3((a.S + MQ - 1) / MQ, a.H, B), M_THREADS, 0, st>>>(a, HD, vec);
+  return cudaSuccess;
+}
+
+template <int HDP>
+cudaError_t launch_attention_f32(const AttnArgs& a, int B, int HD, int vec, cudaStream_t st) {
+  auto kernel = attention_f32_kernel<HDP>;
+  constexpr size_t smem = sizeof(F32AttnSmem<HDP>);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3((a.S + FQ - 1) / FQ, a.H, B), F_THREADS, smem, st>>>(a, HD, vec);
+  return cudaSuccess;
 }
 
 }  // namespace k1
 
 // q, k, v: base pointers of head 0 of row 0; q_row / kv_row: row strides in
 // elements (the batch stride is S rows).  out: contiguous (B, S, H·HD).
+// Any head dim from 1 to 128 (MAX_HEAD_DIM in ops/_kernels.py).  bf16 at
+// Dh 64 or 96 with rows TMA can describe (16-byte aligned bases, strides of
+// 8 elements) runs the wgmma kernel, any other bf16 head the mma.sync one;
+// fp32 the register-tiled kernel, each with Dh rounded up to its tile width.
 extern "C" int caco_attention(int dtype, const void* q, const void* k, const void* v, int q_row,
                               int kv_row, const int* mask, void* out, int B, int S, int H, int HD,
                               float q_scale, int causal, void* stream) {
   using namespace k1;
-  if (B <= 0 || S <= 0 || H <= 0 || q_row <= 0 || kv_row <= 0)
+  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0 || HD > 128 || q_row <= 0 || kv_row <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AttnArgs a{q, k, v, static_cast<size_t>(q_row), static_cast<size_t>(kv_row), mask, out,
                    S, H, q_scale, causal};
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  cudaError_t err;
   if (dtype == BF16) {
-    cudaError_t err;
-    if (HD == 64) {
+    const int vec = aligned && HD % 8 == 0 && q_row % 8 == 0 && kv_row % 8 == 0;
+    if (vec && HD == 64) {
       err = launch_attention_bf16<64>(a, B, st);
-    } else if (HD == 96) {
+    } else if (vec && HD == 96) {
       err = launch_attention_bf16<96>(a, B, st);
+    } else if (HD <= 16) {
+      err = launch_attention_mma<16>(a, B, HD, vec, st);
+    } else if (HD <= 32) {
+      err = launch_attention_mma<32>(a, B, HD, vec, st);
+    } else if (HD <= 64) {
+      err = launch_attention_mma<64>(a, B, HD, vec, st);
+    } else if (HD <= 96) {
+      err = launch_attention_mma<96>(a, B, HD, vec, st);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      err = launch_attention_mma<128>(a, B, HD, vec, st);
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
   } else if (dtype == F32) {
-    if (HD <= 0 || HD > F_HDMAX) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((S + FQ - 1) / FQ, H, B);
-    attention_f32_kernel<<<grid, ATT_THREADS, 0, st>>>(a, HD);
+    const int vec = aligned && HD % 4 == 0 && q_row % 4 == 0 && kv_row % 4 == 0;
+    if (HD <= 32) {
+      err = launch_attention_f32<32>(a, B, HD, vec, st);
+    } else if (HD <= 64) {
+      err = launch_attention_f32<64>(a, B, HD, vec, st);
+    } else if (HD <= 96) {
+      err = launch_attention_f32<96>(a, B, HD, vec, st);
+    } else {
+      err = launch_attention_f32<128>(a, B, HD, vec, st);
+    }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,9 +23,10 @@
 //     dK in registers, and needs Δ only as a number per query.
 // Fully masked rows have P = 0 everywhere, so their gradients are 0.
 // bf16: mma.sync m16n8k16, four warps of 16 rows, products straight from
-// the accumulators into the next product's A fragments (csrc/k1_common.cuh).
-// fp32: shared-memory FMA loops (lane per key or per query), as the fp32
-// forward.  Causal: tiles wholly after the diagonal are skipped (P = 0).
+// the accumulators into the next product's A fragments (csrc/k1_common.cuh),
+// the head row rounded up to HDP columns loaded as zeros.  fp32:
+// shared-memory FMA loops (lane per key or per query) over the first Dh of
+// FHD columns.  Causal: tiles wholly after the diagonal are skipped (P = 0).
 //
 // Bound on the card: kernel A recomputes Q·Kᵀ three times and dO·Vᵀ twice
 // per tile, kernel B each once; ~11·S²·Dh flops per head against ~4 for
@@ -44,7 +45,6 @@ constexpr int QB = 32;  // kernel B: queries per tile
 constexpr int F_QA = 16;  // fp32 kernel A: query rows per block (4 warps x 4)
 constexpr int F_KB = 16;  // fp32 kernel B: keys per block (4 warps x 4)
 constexpr int F_T = 32;   // fp32: keys (A) or queries (B) per tile, one per lane
-constexpr int F_HD = 96;  // fp32: largest head dim
 
 struct BwdArgs {
   const void* qkv;  // (B, S, 3D)
@@ -53,48 +53,72 @@ struct BwdArgs {
   void* dqkv;       // (B, S, 3D)
   float* stats;     // (2, B, H, S): row sums, then Δ
   int B, S, H;
+  int HD;           // the head dim, at most the kernel's tile width
+  int vec;          // 16-byte row loads (HD a multiple of 8, 16-byte aligned bases)
   float q_scale;   // 1/sqrt(Dh) in the compute dtype
   float ds_scale;  // 1/sqrt(Dh) in fp32
   int causal;
 };
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // ------------------------------------------------------------------ bf16
 
-template <int HD>
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
-  constexpr int LD = HD + 8, CH = HD / 8;
-  __shared__ __align__(16) bf16 Qs[QA * LD];  // q, scaled
-  __shared__ __align__(16) bf16 Os[QA * LD];  // dO
-  __shared__ __align__(16) bf16 Ks[KA * LD];
-  __shared__ __align__(16) bf16 Vs[KA * LD];
-  __shared__ float kbias[KA];
-  __shared__ float kvalid[KA];
+// Shared memory of the bf16 kernels (dynamic: past 48 KB at HDP = 128).
+// Rows HDP + 8 elements apart keep ldmatrix conflict-free.
+template <int HDP>
+struct BwdQBf16Smem {
+  static constexpr int LD = HDP + 8;
+  bf16 Qs[QA * LD];  // q, scaled
+  bf16 Os[QA * LD];  // dO
+  bf16 Ks[KA * LD];
+  bf16 Vs[KA * LD];
+  float kbias[KA];
+  float kvalid[KA];
+};
 
-  const int S = a.S, H = a.H, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QA;
+template <int HDP>
+struct BwdKVBf16Smem {
+  static constexpr int LD = HDP + 8;
+  bf16 Ks[KB * LD];
+  bf16 Vs[KB * LD];
+  bf16 Qs[QB * LD];  // q, scaled: the logits
+  bf16 Qr[QB * LD];  // q as it is: dK
+  bf16 Os[QB * LD];  // dO
+  float rsum[QB];
+  float delta[QB];
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
+  constexpr int LD = HDP + 8, CH = HDP / 8;
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  BwdQBf16Smem<HDP>& sm = *reinterpret_cast<BwdQBf16Smem<HDP>*>(smem_bwd);
+  bf16* Qs = sm.Qs;
+  bf16* Os = sm.Os;
+  bf16* Ks = sm.Ks;
+  bf16* Vs = sm.Vs;
+  float* kbias = sm.kbias;
+  float* kvalid = sm.kvalid;
+
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QA;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
-  const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + h * HD;
-  const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + h * HD;
+  const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + static_cast<size_t>(h) * HD;
+  const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + static_cast<size_t>(h) * HD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
   for (int c = tid; c < QA * CH; c += BWD_THREADS) {
     const int r = c / CH, ch = c % CH, s = q0 + r;
-    uint4 qv = load8(x + s * ld3 + ch * 8, s < S);
+    uint4 qv = load_cols8(x + s * ld3, ch * 8, HD, a.vec, s < S);
     bf16* e = reinterpret_cast<bf16*>(&qv);
 #pragma unroll
     for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
     *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
-    *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load8(go + s * D + ch * 8, s < S);
+    *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load_cols8(go + static_cast<size_t>(s) * D, ch * 8, HD, a.vec, s < S);
   }
   __syncthreads();
-  unsigned qf[HD / 16][4], of[HD / 16][4];
+  unsigned qf[HDP / 16][4], of[HDP / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < HDP / 16; ++kk) {
     frag_a(qf[kk], Qs, LD, warp * 16, kk * 16);
     frag_a(of[kk], Os, LD, warp * 16, kk * 16);
   }
@@ -105,8 +129,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
     __syncthreads();  // every warp is done with the previous tile
     for (int c = tid; c < KA * CH; c += BWD_THREADS) {
       const int r = c / CH, ch = c % CH, s = k0 + r;
-      *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load8(x + s * ld3 + D + ch * 8, s < S);
-      *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load8(x + s * ld3 + 2 * D + ch * 8, s < S);
+      *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(x + s * ld3 + D, ch * 8, HD, a.vec, s < S);
+      *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load_cols8(x + s * ld3 + 2 * D, ch * 8, HD, a.vec, s < S);
     }
     for (int j = tid; j < KA; j += BWD_THREADS) {
       const int s = k0 + j;
@@ -123,7 +147,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
 #pragma unroll
       for (int nj = 0; nj < KA / 16; ++nj) {
         unsigned kf[4];
@@ -149,7 +173,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
 #pragma unroll
       for (int nj = 0; nj < KA / 16; ++nj) {
         unsigned vf[4];
@@ -185,9 +209,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) dl[i] = quad_sum(dl[i]);
 
-  float dq[HD / 8][4];
+  float dq[HDP / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < HDP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   for (int k0 = 0; k0 < k_end; k0 += KA) {  // sweep 3: dQ += T(dS) · K
@@ -207,7 +231,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
     for (int kk = 0; kk < KA / 16; ++kk) {
 #pragma unroll
-      for (int dj = 0; dj < HD / 16; ++dj) {
+      for (int dj = 0; dj < HDP / 16; ++dj) {
         unsigned kf[4];
         frag_b_kn(kf, Ks, LD, kk * 16, dj * 16);
         mma_bf16(dq[2 * dj], df[kk], kf[0], kf[1]);
@@ -222,11 +246,10 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int s = row[half];
     if (s >= S) continue;
-    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
+    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(drow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dq[n][half * 2], dq[n][half * 2 + 1]);
+    for (int n = 0; n < HDP / 8; ++n)
+      store_cols2(drow, n * 8 + 2 * t, HD, a.vec, dq[n][half * 2], dq[n][half * 2 + 1]);
     if (t == 0) {
       a.stats[stat0 + s] = rs[half];
       a.stats[n_stat + stat0 + s] = dl[half];
@@ -234,21 +257,23 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
   }
 }
 
-template <int HD>
+template <int HDP>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
-  constexpr int LD = HD + 8, CH = HD / 8;
-  __shared__ __align__(16) bf16 Ks[KB * LD];
-  __shared__ __align__(16) bf16 Vs[KB * LD];
-  __shared__ __align__(16) bf16 Qs[QB * LD];  // q, scaled: the logits
-  __shared__ __align__(16) bf16 Qr[QB * LD];  // q as it is: dK
-  __shared__ __align__(16) bf16 Os[QB * LD];  // dO
-  __shared__ float rsum[QB];
-  __shared__ float delta[QB];
+  constexpr int LD = HDP + 8, CH = HDP / 8;
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  BwdKVBf16Smem<HDP>& sm = *reinterpret_cast<BwdKVBf16Smem<HDP>*>(smem_bwd);
+  bf16* Ks = sm.Ks;
+  bf16* Vs = sm.Vs;
+  bf16* Qs = sm.Qs;
+  bf16* Qr = sm.Qr;
+  bf16* Os = sm.Os;
+  float* rsum = sm.rsum;
+  float* delta = sm.delta;
 
-  const int S = a.S, H = a.H, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KB;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KB;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
-  const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + h * HD;
-  const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + h * HD;
+  const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + static_cast<size_t>(h) * HD;
+  const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + static_cast<size_t>(h) * HD;
   const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
   const size_t n_stat = static_cast<size_t>(a.B) * H * S;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -256,8 +281,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
 
   for (int c = tid; c < KB * CH; c += BWD_THREADS) {
     const int r = c / CH, ch = c % CH, s = k0 + r;
-    *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load8(x + s * ld3 + D + ch * 8, s < S);
-    *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load8(x + s * ld3 + 2 * D + ch * 8, s < S);
+    *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(x + s * ld3 + D, ch * 8, HD, a.vec, s < S);
+    *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load_cols8(x + s * ld3 + 2 * D, ch * 8, HD, a.vec, s < S);
   }
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   float kbv[2];
@@ -268,9 +293,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
     kbv[i] = kok[i] ? SOFTMAX_CLAMP : NEG_INF;
   }
 
-  float dk[HD / 8][4], dv[HD / 8][4];
+  float dk[HDP / 8][4], dv[HDP / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < HDP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
@@ -279,13 +304,13 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
     __syncthreads();  // every warp is done with the previous tile
     for (int c = tid; c < QB * CH; c += BWD_THREADS) {
       const int r = c / CH, ch = c % CH, s = q0 + r;
-      uint4 qv = load8(x + s * ld3 + ch * 8, s < S);
+      uint4 qv = load_cols8(x + s * ld3, ch * 8, HD, a.vec, s < S);
       *reinterpret_cast<uint4*>(&Qr[r * LD + ch * 8]) = qv;
       bf16* e = reinterpret_cast<bf16*>(&qv);
 #pragma unroll
       for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
       *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
-      *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load8(go + s * D + ch * 8, s < S);
+      *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load_cols8(go + static_cast<size_t>(s) * D, ch * 8, HD, a.vec, s < S);
     }
     for (int j = tid; j < QB; j += BWD_THREADS) {
       const int s = q0 + j;
@@ -301,7 +326,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
       unsigned kf[4], vf[4];
       frag_a(kf, Ks, LD, warp * 16, kk * 16);
       frag_a(vf, Vs, LD, warp * 16, kk * 16);
@@ -335,7 +360,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
 #pragma unroll
     for (int kk = 0; kk < QB / 16; ++kk) {
 #pragma unroll
-      for (int dj = 0; dj < HD / 16; ++dj) {
+      for (int dj = 0; dj < HDP / 16; ++dj) {
         unsigned of[4], qf[4];
         frag_b_kn(of, Os, LD, kk * 16, dj * 16);
         frag_b_kn(qf, Qr, LD, kk * 16, dj * 16);
@@ -351,28 +376,49 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int s = key[half];
     if (s >= S) continue;
-    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
+    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(drow + D + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk[n][half * 2], dk[n][half * 2 + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(drow + 2 * D + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv[n][half * 2], dv[n][half * 2 + 1]);
+    for (int n = 0; n < HDP / 8; ++n) {
+      store_cols2(drow + D, n * 8 + 2 * t, HD, a.vec, dk[n][half * 2], dk[n][half * 2 + 1]);
+      store_cols2(drow + 2 * D, n * 8 + 2 * t, HD, a.vec, dv[n][half * 2], dv[n][half * 2 + 1]);
     }
   }
 }
 
 // ------------------------------------------------------------------ fp32
 
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a, int HD) {
-  __shared__ float Qs[F_QA][F_HD];  // q, scaled
-  __shared__ float Os[F_QA][F_HD];  // dO
-  __shared__ float Ks[F_T][F_HD + 1];
-  __shared__ float Vs[F_T][F_HD + 1];
-  __shared__ float kbias[F_T];
-  __shared__ float kvalid[F_T];
+template <int FHD>
+struct BwdQF32Smem {
+  float Qs[F_QA][FHD];  // q, scaled
+  float Os[F_QA][FHD];  // dO
+  float Ks[F_T][FHD + 1];
+  float Vs[F_T][FHD + 1];
+  float kbias[F_T];
+  float kvalid[F_T];
+};
 
-  const int S = a.S, H = a.H, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * F_QA;
+template <int FHD>
+struct BwdKVF32Smem {
+  float Ks[F_KB][FHD];
+  float Vs[F_KB][FHD];
+  float Qr[F_T][FHD + 1];  // q as it is; scaled on the fly for the logits
+  float Os[F_T][FHD + 1];  // dO
+  float rsum[F_T];
+  float delta[F_T];
+};
+
+template <int FHD>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  BwdQF32Smem<FHD>& sm = *reinterpret_cast<BwdQF32Smem<FHD>*>(smem_bwd);
+  auto& Qs = sm.Qs;
+  auto& Os = sm.Os;
+  auto& Ks = sm.Ks;
+  auto& Vs = sm.Vs;
+  auto& kbias = sm.kbias;
+  auto& kvalid = sm.kvalid;
+
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * F_QA;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const float* x = static_cast<const float*>(a.qkv) + row0 * ld3 + h * HD;
   const float* go = static_cast<const float*>(a.g) + row0 * D + h * HD;
@@ -414,12 +460,12 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a, int HD)
     return dp;
   };
 
-  float rs[RW], dl[RW], dq[RW][F_HD / 32];
+  float rs[RW], dl[RW], dq[RW][FHD / 32];
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     rs[rr] = dl[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < F_HD / 32; ++i) dq[rr][i] = 0.f;
+    for (int i = 0; i < FHD / 32; ++i) dq[rr][i] = 0.f;
   }
   for (int k0 = 0; k0 < k_end; k0 += F_T) {
     load_tile(k0);
@@ -449,7 +495,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a, int HD)
       for (int j = 0; j < F_T; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int i = 0; i < F_HD / 32; ++i) {
+        for (int i = 0; i < FHD / 32; ++i) {
           const int d = lane + 32 * i;
           if (d < HD) dq[rr][i] = fmaf(dsj, Ks[j][d], dq[rr][i]);
         }
@@ -465,7 +511,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a, int HD)
     if (s >= S) continue;
     float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
 #pragma unroll
-    for (int i = 0; i < F_HD / 32; ++i) {
+    for (int i = 0; i < FHD / 32; ++i) {
       const int d = lane + 32 * i;
       if (d < HD) drow[d] = dq[rr][i];
     }
@@ -476,15 +522,18 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a, int HD)
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a, int HD) {
-  __shared__ float Ks[F_KB][F_HD];
-  __shared__ float Vs[F_KB][F_HD];
-  __shared__ float Qr[F_T][F_HD + 1];  // q as it is; scaled on the fly for the logits
-  __shared__ float Os[F_T][F_HD + 1];  // dO
-  __shared__ float rsum[F_T];
-  __shared__ float delta[F_T];
+template <int FHD>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  BwdKVF32Smem<FHD>& sm = *reinterpret_cast<BwdKVF32Smem<FHD>*>(smem_bwd);
+  auto& Ks = sm.Ks;
+  auto& Vs = sm.Vs;
+  auto& Qr = sm.Qr;
+  auto& Os = sm.Os;
+  auto& rsum = sm.rsum;
+  auto& delta = sm.delta;
 
-  const int S = a.S, H = a.H, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * F_KB;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * F_KB;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const float* x = static_cast<const float*>(a.qkv) + row0 * ld3 + h * HD;
   const float* go = static_cast<const float*>(a.g) + row0 * D + h * HD;
@@ -500,14 +549,14 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a, int HD
   }
   float kbv[RW];
   bool kok[RW];
-  float dk[RW][F_HD / 32], dv[RW][F_HD / 32];
+  float dk[RW][FHD / 32], dv[RW][FHD / 32];
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     const int s = k0 + warp * RW + rr;
     kok[rr] = s < S && a.mask[row0 + s] > 0;
     kbv[rr] = kok[rr] ? SOFTMAX_CLAMP : NEG_INF;
 #pragma unroll
-    for (int i = 0; i < F_HD / 32; ++i) dk[rr][i] = dv[rr][i] = 0.f;
+    for (int i = 0; i < FHD / 32; ++i) dk[rr][i] = dv[rr][i] = 0.f;
   }
 
   const int q_begin = a.causal ? (k0 / F_T) * F_T : 0;
@@ -541,7 +590,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a, int HD
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int i = 0; i < F_HD / 32; ++i) {
+        for (int i = 0; i < FHD / 32; ++i) {
           const int d = lane + 32 * i;
           if (d < HD) {
             dv[rr][i] = fmaf(pj, Os[j][d], dv[rr][i]);
@@ -558,7 +607,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a, int HD
     if (s >= S) continue;
     float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
 #pragma unroll
-    for (int i = 0; i < F_HD / 32; ++i) {
+    for (int i = 0; i < FHD / 32; ++i) {
       const int d = lane + 32 * i;
       if (d < HD) {
         drow[D + d] = dk[rr][i];
@@ -568,40 +617,71 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a, int HD
   }
 }
 
+// Kernel A, then kernel B; their shared memory passes the 48 KB static
+// limit at a width of 128 (bf16 and fp32).
+template <int HDP>
+cudaError_t launch_bwd_bf16(const BwdArgs& a, cudaStream_t st) {
+  constexpr size_t smem_q = sizeof(BwdQBf16Smem<HDP>), smem_kv = sizeof(BwdKVBf16Smem<HDP>);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      attn_bwd_q_bf16<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      attn_bwd_kv_bf16<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (attr_q != cudaSuccess) return attr_q;
+  if (attr_kv != cudaSuccess) return attr_kv;
+  attn_bwd_q_bf16<HDP><<<dim3((a.S + QA - 1) / QA, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_kv_bf16<HDP><<<dim3((a.S + KB - 1) / KB, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
+  return cudaSuccess;
+}
+
+template <int FHD>
+cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
+  constexpr size_t smem_q = sizeof(BwdQF32Smem<FHD>), smem_kv = sizeof(BwdKVF32Smem<FHD>);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      attn_bwd_q_f32<FHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      attn_bwd_kv_f32<FHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (attr_q != cudaSuccess) return attr_q;
+  if (attr_kv != cudaSuccess) return attr_kv;
+  attn_bwd_q_f32<FHD><<<dim3((a.S + F_QA - 1) / F_QA, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_kv_f32<FHD><<<dim3((a.S + F_KB - 1) / F_KB, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
+  return cudaSuccess;
+}
+
 }  // namespace k1
 
 // qkv, dqkv: (B, S, 3·H·HD); g: (B, S, H·HD) in the same dtype; stats:
 // fp32 scratch of 2·B·H·S.  Kernel A, then kernel B, on the caller's stream.
+// Any head dim from 1 to 128, rounded up to the kernels' tile width (bf16:
+// 16, 32, 64, 96 or 128; fp32: 32, 64, 96 or 128) with zero columns.
 extern "C" int caco_attention_bwd(int dtype, const void* qkv, const int* mask, const void* g,
                                   void* dqkv, float* stats, int B, int S, int H, int HD,
                                   float q_scale, float ds_scale, int causal, void* stream) {
   using namespace k1;
-  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0 || HD > 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const BwdArgs a{qkv, mask, g, dqkv, stats, B, S, H, q_scale, ds_scale, causal};
+  const bool aligned = ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(dqkv)) & 15) == 0;
+  const BwdArgs a{qkv, mask, g, dqkv, stats, B, S, H, HD, aligned && HD % 8 == 0,
+                  q_scale, ds_scale, causal};
+  cudaError_t err;
   if (dtype == BF16) {
-    const dim3 grid_a((S + QA - 1) / QA, H, B), grid_b((S + KB - 1) / KB, H, B);
-    if (HD == 64) {
-      attn_bwd_q_bf16<64><<<grid_a, BWD_THREADS, 0, st>>>(a);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-      attn_bwd_kv_bf16<64><<<grid_b, BWD_THREADS, 0, st>>>(a);
-    } else if (HD == 96) {
-      attn_bwd_q_bf16<96><<<grid_a, BWD_THREADS, 0, st>>>(a);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-      attn_bwd_kv_bf16<96><<<grid_b, BWD_THREADS, 0, st>>>(a);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    err = HD <= 16   ? launch_bwd_bf16<16>(a, st)
+          : HD <= 32 ? launch_bwd_bf16<32>(a, st)
+          : HD <= 64 ? launch_bwd_bf16<64>(a, st)
+          : HD <= 96 ? launch_bwd_bf16<96>(a, st)
+                     : launch_bwd_bf16<128>(a, st);
   } else if (dtype == F32) {
-    if (HD <= 0 || HD > F_HD) return static_cast<int>(cudaErrorInvalidValue);
-    attn_bwd_q_f32<<<dim3((S + F_QA - 1) / F_QA, H, B), BWD_THREADS, 0, st>>>(a, HD);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attn_bwd_kv_f32<<<dim3((S + F_KB - 1) / F_KB, H, B), BWD_THREADS, 0, st>>>(a, HD);
+    err = HD <= 32   ? launch_bwd_f32<32>(a, st)
+          : HD <= 64 ? launch_bwd_f32<64>(a, st)
+          : HD <= 96 ? launch_bwd_f32<96>(a, st)
+                     : launch_bwd_f32<128>(a, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -75,6 +75,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Sum over the 4 lanes of a quad (the lanes that hold one mma.sync row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // ---- PTX wrappers: ldmatrix, mma.sync (bf16 in, fp32 accumulate)
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -145,6 +151,56 @@ __device__ __forceinline__ void acc_to_a(unsigned (&a)[N / 2][4], const float (&
 // 16-byte copy of eight bf16 values from global memory, zeros when !pred.
 __device__ __forceinline__ uint4 load8(const bf16* p, bool pred) {
   return pred ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Columns c..c+7 of a bf16 head row of width hd, zeros past hd (and all
+// zeros when !ok): one 16-byte load when `vec` (hd and the row strides
+// multiples of 8, 16-byte aligned bases), else element by element.  Rounds
+// any head dim up to the kernels' tile width with exact zero columns.
+__device__ __forceinline__ uint4 load_cols8(const bf16* row, int c, int hd, bool vec, bool ok) {
+  if (!ok || c >= hd) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec) return *reinterpret_cast<const uint4*>(row + c);
+  uint4 r;
+  bf16* e = reinterpret_cast<bf16*>(&r);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = c + j < hd ? row[c + j] : __float2bfloat16_rn(0.f);
+  return r;
+}
+
+// Columns c, c+1 (c even) of a bf16 head row of width hd: the columns
+// below hd, as one 4-byte store when `vec` (then hd is even).
+__device__ __forceinline__ void store_cols2(bf16* row, int c, int hd, bool vec, float v0, float v1) {
+  if (vec) {
+    if (c < hd) *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  if (c < hd) row[c] = __float2bfloat16_rn(v0);
+  if (c + 1 < hd) row[c + 1] = __float2bfloat16_rn(v1);
+}
+
+// ---- cp.async (sm_80+): global → shared without registers; `bytes` below
+// the copy size zero-fills the rest (0: a zero tile past the edge).
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace k1

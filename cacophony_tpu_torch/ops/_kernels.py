@@ -56,6 +56,10 @@ _SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "caco
             "log_mel": "k8_log_mel", "log_mel_fast": "k8_log_mel_fast"}
 
 _VSCALE = 2.0 ** -24
+# The widest head the attention kernels take (csrc/attention.cu,
+# attention_bwd.cu: the head row is rounded up to a tile of at most 128
+# columns).  The Pallas kernels have no such limit; see ROADMAP queue C.
+MAX_HEAD_DIM = 128
 _SOFTMAX_CLAMP = 80.0
 _NEG_INF = -1e30
 _ROWSUM_FLOOR = 1e-37
@@ -228,21 +232,18 @@ def gemm_plain(a, w, bias, epilogue: int, resid=None):
     raise ValueError(f"unknown epilogue {epilogue}")
 
 
-def _aligned(*ts) -> bool:
-    """16-byte aligned base pointers: TMA and the kernels' 16-byte accesses
-    need them (a fresh allocation is; a view at an odd offset may not be)."""
-    return all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
-
-
 def gemm_operands(a, w, bias, epilogue: int, resid=None):
     """The GEMM kernel's contract → (M, N, K); raises ValueError on what
-    csrc/gemm.cu does not take.  Host-side only, so it runs on any device."""
+    csrc/gemm.cu does not take.  Host-side only, so it runs on any device.
+    Any M, N, K ≥ 1: bf16 operands TMA can describe (N and K multiples of
+    8, 16-byte aligned bases) run the wgmma kernel, the rest (and fp32) the
+    SIMT kernel."""
     _check_common(a, bias)
     k = a.shape[-1]
-    m = a.numel() // k
+    m = a.numel() // k if k else 0
     _need(w.dim() == 2 and w.shape[0] == k and w.dtype == a.dtype and w.is_contiguous(), "weight")
     n = w.shape[1]
-    _need(m > 0 and n % 8 == 0 and k % 8 == 0, f"M={m} N={n} K={k} (N, K multiples of 8)")
+    _need(m > 0 and n > 0 and k > 0, f"M={m} N={n} K={k} (each at least 1)")
     _need(bias.numel() == n, "bias width")
     _need(epilogue in (EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD), "epilogue")
     if epilogue in (EPI_BIAS_RESID_F32, EPI_BIAS_CAST_ADD):
@@ -250,7 +251,6 @@ def gemm_operands(a, w, bias, epilogue: int, resid=None):
               and resid.numel() == m * n, "residual")
     else:
         resid = None
-    _need(_aligned(a, w, bias, resid), "operands not 16-byte aligned")
     return m, n, k
 
 
@@ -340,20 +340,24 @@ def attention_split_plain(q, kv, mask, num_heads: int):
     return attention_core_plain(q, *kv.chunk(2, dim=-1), mask, num_heads)
 
 
+def _check_head_dim(hd: int) -> None:
+    _need(0 < hd <= MAX_HEAD_DIM, f"head dim {hd} (1 to {MAX_HEAD_DIM})")
+
+
 def attention_operands(q, k, v, q_row: int, kv_row: int, mask, num_heads: int):
     """The attention kernel's contract → (B, S, D, Dh); raises ValueError
-    on what csrc/attention.cu does not take.  Host-side only."""
+    on what csrc/attention.cu does not take.  Host-side only.  Any head dim
+    up to MAX_HEAD_DIM, any alignment: the kernel reads 16 bytes at a time
+    where the rows allow it (bf16 at Dh 64 or 96 then runs on wgmma + TMA)
+    and element by element elsewhere."""
     b, s, d = q.shape[0], q.shape[1], q.shape[-1]
     hd = d // num_heads
     _need(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype, f"dtype {q.dtype}")
-    _need(d % num_heads == 0 and d % 8 == 0, f"width {d} with {num_heads} heads")
+    _need(d % num_heads == 0, f"width {d} with {num_heads} heads")
     _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
           "mask must be contiguous int32 (B, S)")
-    if q.dtype == torch.bfloat16:
-        _need(hd in (64, 96), f"bf16 head dim {hd} (64 or 96)")
-    else:
-        _need(0 < hd <= 96, f"fp32 head dim {hd} (at most 96)")
-    _need(b > 0 and s > 0 and _aligned(q, k, v), "empty or misaligned q/k/v")
+    _check_head_dim(hd)
+    _need(b > 0 and s > 0, "empty q/k/v")
     _need(all(t.stride(-1) == 1 and t.stride(1) == row and t.stride(0) == s * row
               for t, row in ((q, q_row), (k, kv_row), (v, kv_row))),
           "q/k/v rows must be the given row strides apart, clips S rows apart")
@@ -443,12 +447,7 @@ def attention_bwd(qkv, mask, g, num_heads: int, causal: bool = False):
           "g must be contiguous (B, S, D) in qkv's dtype")
     _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
           "mask must be contiguous int32 (B, S)")
-    if qkv.dtype == torch.bfloat16:
-        _need(hd in (64, 96), f"bf16 head dim {hd} (64 or 96)")
-    else:
-        _need(0 < hd <= 96, f"fp32 head dim {hd} (at most 96)")
-    _need(d % 8 == 0 and qkv.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0,
-          "width not a multiple of 8, or misaligned qkv / g")
+    _check_head_dim(hd)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(2 * b * num_heads * s, dtype=torch.float32, device=qkv.device)
     _launch("k7", qkv.device, _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(),

@@ -5,9 +5,10 @@ audio_patch_batch, embed_texts, score).
 - fixed-size batch buckets (pad + mask + slice): every audio bucket is
   `batch_size` clips of `buffer_seconds`, the tail bucket padded with
   zero-length clips whose mask is all zero;
-- the patch budget is the buffer's patch count rounded up as the JAX
-  engine rounds it (`preferred_seq_len`): a 30-s buffer has 1496 patches
-  and runs at 1536 in bf16 at caco_base width, the extra slots masked;
+- the patch budget is `patches_seq_len` (by default the buffer's patch
+  count) rounded up as the JAX engine rounds it (`preferred_seq_len`): a
+  30-s buffer has 1496 patches and runs at 1536 in bf16 at caco_base
+  width, the extra slots masked;
 - a bounded dispatch window: at most DISPATCH_WINDOW buckets in flight,
   each filled in pinned host memory and copied with non_blocking=True, so
   filling the next bucket overlaps the device's work on earlier ones;
@@ -47,7 +48,8 @@ DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
 
 class CacoEngine:
     def __init__(self, cfg: CacoConfig, params: CacoModel, *, tokenizer=None,
-                 device="cuda", buffer_seconds: float = 10.0, max_text_len: int = 100,
+                 device="cuda", buffer_seconds: float = 10.0,
+                 patches_seq_len: Optional[int] = None, max_text_len: int = 100,
                  batch_size: int = 32, dtype: Optional[torch.dtype] = None,
                  fused_frontend: bool = False):
         """dtype overrides cfg.dtype as the compute dtype; parameters stay
@@ -56,6 +58,11 @@ class CacoEngine:
         On CUDA the fp32 products (frontend, fp32 path) must be full fp32,
         so TF32 is turned off for matmuls and cuDNN in this process, and
         bf16 products outside the kernels sum in fp32 as XLA's do.
+
+        patches_seq_len: the patch budget of every clip (None: every valid
+        patch of the buffer fits), rounded by `preferred_seq_len` as the JAX
+        engine rounds it with `flash_attention` on — the port always takes
+        the kernel routes.  A smaller budget keeps a clip's first patches.
 
         fused_frontend: compute the log-mel with K8 instead of the unfused
         chain (the same values up to the order of fp32 sums)."""
@@ -72,12 +79,14 @@ class CacoEngine:
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.front = FrontendConfig()
         self.buffer_samples = int(round(buffer_seconds * self.front.sample_rate))
-        # every valid patch of the buffer fits (reference eval_caco.py:321,351);
-        # the whole pipeline runs at the blocked kernel's padded length, the
-        # extra slots masked (JAX engine.py:75-89)
-        seq = num_patches_for_samples(self.buffer_samples, self.front, PatchConfig())
+        # by default every valid patch of the buffer fits (reference
+        # eval_caco.py:321,351); the whole pipeline runs at the blocked
+        # kernel's padded length, the extra slots masked (JAX engine.py:75-89)
+        if patches_seq_len is None:
+            patches_seq_len = num_patches_for_samples(self.buffer_samples, self.front,
+                                                      PatchConfig())
         self.patch = PatchConfig(patches_seq_len=preferred_seq_len(
-            seq, cfg.audio.hidden_size, cfg.dtype))
+            patches_seq_len, cfg.audio.hidden_size, cfg.dtype))
         self.max_text_len = max_text_len
         self.batch_size = batch_size
         self.tokenizer = tokenizer

@@ -12,7 +12,10 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    over every fp32 input (any differing bit fails);
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
    plain PyTorch version on the card: B=8, S=496, D=768, H=8, I=3072, some
-   padded keys and one all-masked clip, bf16 and fp32;
+   padded keys and one all-masked clip, bf16 and fp32 (the fp32 GEMM and
+   attention are the register-tiled SIMT kernels); the GEMM at ragged
+   M, N, K (N, K not multiples of 8: the SIMT kernel in bf16 too), every
+   epilogue, bf16 and fp32;
 3. K2 and K3 (`fused_block_attention`, the chain up to LN2) against the plain
    version: B=8, K2 at S=496 in fp32, K3 at S=1496 padded to 1536 inside
    in bf16 and fp32, mixed lengths and a clip with no valid patch;
@@ -25,6 +28,9 @@ Phases (any failure exits non-zero and prints no final `ok` line):
 5. caco_base() with random weights from seed 0, a bf16 10-s CacoEngine on
    cuda: embed_audio on 70 clips of 3-10 s (the last bucket is mostly
    padding), embed_texts, score; K1 launched 12 times per bucket;
+5b. caco_tiny() in bf16 on cuda (Dh 16: the attention link is the mma.sync
+   kernel): K1 launched 2 times per bucket; cosine >= 0.999 against the
+   CPU engine;
 6. the fp32 10-s engine on the same clips: K2 launched 12 times per bucket
    and K1 none; fp32 card vs fp32 plain on the CPU (cosine >= 0.9999 on 2
    clips); bf16 vs fp32 on the card (cosine >= 0.999);
@@ -49,7 +55,9 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    Dh=96 in bf16 and fp32 and causal at H=12, Dh=64, S=100, padded keys
    and an all-masked clip; K5 at S=1500 padded to 1536 in bf16; K7 in bf16
    at S=500 and fp32 at S=100, causal and not, the all-masked clip's
-   gradients finite and zero;
+   gradients finite and zero; the attention link, K4 (causal) and K7 at
+   head dims 16, 32 and 128 in bf16 and fp32, with an all-masked clip and
+   with logits far above the clamp of 80;
 10. the stage-2 training step (train/train.py) at caco_base in bf16: B=16,
    500 patches from `device_train_frontend` on synthetic 3-10-s wavs, 100
    tokens; 5 steps on one batch with warmup 1: K4 and K7 launched 12 times
@@ -67,8 +75,9 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    or operations over the H100's peaks); the redesigned bf16 GEMM and
    attention against one PyTorch call in turns (torch.matmul at the 10-s
    and 30-s products, F.scaled_dot_product_attention at S=496 and 1536, K4
-   and K5, SDPA's backward for K7), K2's fp32 links, the LayerNorm link and
-   K8's three library calls.
+   and K5, SDPA's backward alone for K7), K2's fp32 links and K4 in fp32
+   against torch.matmul / SDPA in fp32, the LayerNorm link and K8's three
+   library calls; the fp32 10-s embed_audio rate.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
@@ -352,7 +361,26 @@ def kernel_phase(blk):
                                       ea.fused_layer_plain(blk, x, mask, h, 1e-6), catol, crtol)
         if dt == torch.bfloat16:
             errs = dt_errs
+    errs["gemm_ragged"] = ragged_gemm_check(gen)
     return errs
+
+
+def ragged_gemm_check(gen):
+    """Phase 2: the GEMM where N and K are not multiples of 8 (the SIMT
+    kernel, in bf16 as in fp32) and M is not a multiple of the tile, every
+    epilogue, against the plain version."""
+    m, n, k = 1000, 2300, 764
+    err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        a = torch.randn(m, k, generator=gen).to(DEVICE, dt)
+        w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(DEVICE, dt)
+        bias = torch.randn(n, generator=gen).to(DEVICE)
+        r = torch.randn(m, n, generator=gen).to(DEVICE, dt)
+        for epi in (kern.EPI_BIAS, kern.EPI_BIAS_RESID_F32, kern.EPI_BIAS_SILU, kern.EPI_BIAS_CAST_ADD):
+            err = max(err, compare(f"gemm {_dt_name(dt)} M={m} N={n} K={k} epilogue {epi}",
+                                   kern.gemm(a, w, bias, epi, r), kern.gemm_plain(a, w, bias, epi, r),
+                                   *TOL[dt]["kernel"]))
+    return err
 
 
 @torch.inference_mode()
@@ -489,6 +517,56 @@ def attention_phase():
         err = compare(label, got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), *TOL[dt]["k7"])
         errs["K7"] = max(errs.get("K7", 0.0), err)
         check(bool((got[6] == 0).all()), f"{label}: the all-masked clip's gradients are not 0")
+    for key, err in head_dim_checks(gen).items():
+        errs[key] = max(errs[key], err)
+    return errs
+
+
+# Logits far above the clamp (q, k of scale 8): fp32 keeps 1e-4 relative
+# but logits of a few hundred carry ~1e-5 of absolute rounding into p, so
+# 5e-3 absolute (as tests/test_torch_cuda.py); bf16 rows whose every
+# attended logit lies below -70 are left out (the tensor cores flush
+# p·v·2^-24 below fp32's normal range where the plain version keeps it).
+TOL_CLAMP = {torch.float32: (5e-3, 1e-4), torch.bfloat16: (6e-2, 2e-2)}
+
+
+def head_dim_checks(gen):
+    """Phase 9: the attention link, K4 (causal) and K7 at head dims 16, 32
+    and 128 (8 heads, B=4, S=500, bf16 and fp32; bf16 through the mma.sync
+    kernel), an all-masked clip, and logits far above the clamp."""
+    b, s, heads = 4, 500, 8
+    mask = (torch.arange(s)[None, :] < torch.tensor([500, 321, 0, 17])[:, None]).to(DEVICE, torch.int32)
+    errs = {"K4": 0.0, "K7": 0.0}
+    for hd in (16, 32, 128):
+        d = heads * hd
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = (1.5 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, dt)
+            g = torch.randn(b, s, d, generator=gen).to(DEVICE, dt)
+            name = f"Dh={hd} {_dt_name(dt)}"
+            for label, got, ref, tol, key in (
+                    ("attention link", kern.attention(qkv, mask, heads),
+                     kern.attention_plain(qkv, mask, heads), TOL[dt]["kernel"], "K4"),
+                    ("K4 causal", kern.attention_k4(qkv, mask, heads, True),
+                     kern.attention_plain(qkv, mask, heads, True), TOL[dt]["kernel"], "K4"),
+                    ("K7", kern.attention_bwd(qkv, mask, g, heads),
+                     kern.attention_bwd_plain(qkv, mask, g, heads), TOL[dt]["k7"], "K7"),
+                    ("K7 causal", kern.attention_bwd(qkv, mask, g, heads, True),
+                     kern.attention_bwd_plain(qkv, mask, g, heads, True), TOL[dt]["k7"], "K7")):
+                errs[key] = max(errs[key], compare(f"{label} {name}", got, ref, *tol))
+                check(bool((got[2] == 0).all()), f"{label} {name}: the all-masked clip is not 0")
+            big = (8.0 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, dt)
+            got, ref = kern.attention(big, mask, heads), kern.attention_plain(big, mask, heads)
+            q, k, _ = (kern.split_heads(t, heads).float() for t in big.chunk(3, dim=-1))
+            top = torch.minimum((q * kern.q_scale(hd, dt)).to(dt).float() @ k.transpose(-1, -2),
+                                kern._kbias(mask, s, False)).amax(dim=-1)
+            rows = kern.merge_heads((top > -70.0)[..., None].expand(-1, -1, -1, hd))
+            clamped = float((top >= 80.0).float()[:2].mean())
+            if dt == torch.float32:
+                rows = torch.ones_like(rows)
+            compare(f"attention link {name}, logits above the clamp ({clamped:.2f} of rows)",
+                    got[rows], ref[rows], *TOL_CLAMP[dt])
+            check(clamped > 0.3, f"{name}: too few rows reach the clamp ({clamped})")
+            check(bool((got[2] == 0).all()), f"clamp case {name}: the all-masked clip is not 0")
     return errs
 
 
@@ -798,6 +876,32 @@ def grad_phase(cfg, model, wavs):
     return got, {"fp32_grad_rel_err": rel, "bf16_block_params_with_grad": len(blocks)}
 
 
+def tiny_engine_phase(wavs):
+    """Phase 5b: CacoEngine at caco_tiny width (hidden 32, 2 heads of Dh 16)
+    in bf16 on the card, every audio layer on K1 with the mma.sync attention
+    link; its embeddings against the CPU engine's in bf16 and in fp32."""
+    cfg = configs.caco_tiny()
+    clips = wavs[:40]
+    n_buckets = -(-len(clips) // BATCH)
+    engine = CacoEngine(cfg, caco_init(cfg, torch.Generator().manual_seed(SEED)), device=DEVICE,
+                        batch_size=BATCH, dtype=torch.bfloat16)
+    print(f"phase 5b: caco_tiny bf16 10-s engine on cuda (Dh {cfg.audio.hidden_size // cfg.audio.num_heads})")
+    emb, got = drive("caco_tiny bf16 embed_audio",
+                     lambda: engine.embed_audio(clips),
+                     {"k1_layer": cfg.audio.num_layers * n_buckets, "k2_block": 0, "k3_block": 0,
+                      "attention": cfg.audio.num_layers * n_buckets})
+    check_embeddings("caco_tiny audio", emb, len(clips), cfg)
+    cos = {}
+    for dt in (torch.bfloat16, torch.float32):
+        cpu = CacoEngine(cfg, caco_init(cfg, torch.Generator().manual_seed(SEED)), device="cpu",
+                         batch_size=BATCH, dtype=dt)
+        cos[_dt_name(dt)] = float(cosine_rows(emb, cpu.embed_audio(clips)).min())
+    print(f"  cosine card bf16 vs CPU ({len(clips)} clips, min): bf16 {cos['bfloat16']:.7f}, "
+          f"fp32 {cos['float32']:.7f} (≥ 0.999)")
+    check(min(cos.values()) >= 0.999, "caco_tiny bf16 on the card disagrees with the CPU engine")
+    return got, cos
+
+
 def byte_tokenizer():
     """Degenerate byte-level BPE: specials + all 256 byte symbols, no merges."""
     vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
@@ -952,21 +1056,22 @@ def links_phase(blk, label):
                        km, lm, {"bf16": 2 * m * n * k}, 2 * (m * k + k * n + m * n) + resid + 4 * n)
             del a, w, r
 
-        def attn_case(key, what, b, s, valid_max, split=False):
+        def attn_case(key, what, b, s, valid_max, split=False, dt=torch.bfloat16):
             lens = list(np.random.RandomState(SEED).randint(valid_max // 10, valid_max + 1, size=b))
-            x = (1.5 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, torch.bfloat16)
+            x = (1.5 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, dt)
             mask = (torch.arange(s)[None, :] < torch.tensor(lens)[:, None]).to(DEVICE, torch.int32)
             if split:
                 q, kv = x[..., :d].contiguous(), x[..., d:].contiguous()
                 kfn = lambda: kern.attention_k5(q, kv, mask, h)  # noqa: E731
                 qs, ks, vs = (kern.split_heads(t, h) for t in (q, *kv.chunk(2, dim=-1)))
             else:
-                kfn = (lambda: kern.attention_k4(x, mask, h)) if key == "k4" else (  # noqa: E731
+                kfn = (lambda: kern.attention_k4(x, mask, h)) if key.startswith("k4") else (  # noqa: E731
                     lambda: kern.attention(x, mask, h))
                 qs, ks, vs = (kern.split_heads(t, h) for t in x.chunk(3, dim=-1))
             am = (mask > 0)[:, None, None, :]
             lm, km = paired_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), kfn, 10)
-            report(key, what, km, lm, {"bf16": attn_flops(h, hd, s, lens)}, 2 * b * s * 4 * d)
+            size, kind = (4, "fp32") if dt == torch.float32 else (2, "bf16")
+            report(key, what, km, lm, {kind: attn_flops(h, hd, s, lens)}, size * b * s * 4 * d)
             out[key]["sdpa_backend"] = sdpa_backend(qs, ks, vs, am)
             return x, mask, lens
 
@@ -974,21 +1079,22 @@ def links_phase(blk, label):
         attn_case("attention_30s", "attention, 30 s (B=32, S=1536)", BATCH, 1536, 1536)
         qkv16, m16, lens16 = attn_case("k4", "K4 (B=16, S=500)", TRAIN_BATCH, 500, 500)
         attn_case("k5", "K5 (B=4, S=1536, ≤ 1500 valid)", TRAIN_BATCH_30, 1536, 1500, split=True)
-        print(f"  SDPA backend: {out['attention_30s']['sdpa_backend']}")
+        attn_case("k4_fp32", "K4 fp32 (B=16, S=500)", TRAIN_BATCH, 500, 500, dt=torch.float32)
+        print(f"  SDPA backend: {out['attention_30s']['sdpa_backend']}; fp32: "
+              f"{out['k4_fp32']['sdpa_backend']}")
 
-    # K7 against SDPA's backward: SDPA forward + backward less its forward
+    # K7 against SDPA's backward alone: one SDPA forward with grad, then its
+    # backward (retain_graph) in turns with K7 on the same inputs
     g = torch.randn(TRAIN_BATCH, 500, d, generator=gen).to(DEVICE, torch.bfloat16)
     qh, kh, vh = (kern.split_heads(t, h).contiguous().requires_grad_() for t in qkv16.chunk(3, dim=-1))
     go, am = kern.split_heads(g, h).contiguous(), (m16 > 0)[:, None, None, :]
     with torch.enable_grad():
-        fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)  # noqa: E731
-        fwd_bwd = lambda: torch.autograd.grad(fwd(), (qh, kh, vh), go)  # noqa: E731
-        k1 = cuda_ms(lambda: kern.attention_bwd(qkv16, m16, g, h), 10)
-        fb = cuda_ms(fwd_bwd, 10) + cuda_ms(fwd_bwd, 10)
-        f = cuda_ms(fwd, 10) + cuda_ms(fwd, 10)
-        k2 = cuda_ms(lambda: kern.attention_bwd(qkv16, m16, g, h), 10)
-    report("k7", "K7 (B=16, S=500) vs SDPA backward", (k1 + k2) / 2, (fb - f) / 2,
+        sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+        lm, km = paired_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), go, retain_graph=True),
+                           lambda: kern.attention_bwd(qkv16, m16, g, h), 10)
+    report("k7", "K7 (B=16, S=500) vs SDPA backward", km, lm,
            {"bf16": attn_flops(h, hd, 500, lens16, products=5)}, 2 * TRAIN_BATCH * 500 * 7 * d)
+    del sdpa_out
 
     with torch.no_grad():
         m = BATCH * 496
@@ -1103,6 +1209,8 @@ def run() -> dict:
     check(np.allclose(scores, np.exp(cfg.logit_scale_init) * a_emb @ t_emb.T, rtol=1e-4, atol=1e-4),
           "score is not exp(logit_scale) · A @ Tᵀ")
 
+    path["tiny"], tiny_cos = tiny_engine_phase(wavs)
+
     print("phase 6: fp32 10-s engine (K2 + MLP outside the kernel)")
     engine32 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
                           dtype=torch.float32)
@@ -1178,6 +1286,12 @@ def run() -> dict:
     rates = clips_per_s(engine, bench)
     print(f"  embed_audio {rates[0]:.1f} / {rates[1]:.1f} clips/s (10-s clips, bf16, "
           f"batch {BATCH}, {len(bench)} clips per run; {label})")
+    engine32 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                          dtype=torch.float32)
+    rates32 = clips_per_s(engine32, bench)
+    print(f"  embed_audio {rates32[0]:.1f} / {rates32[1]:.1f} clips/s (10-s clips, fp32, "
+          f"batch {BATCH}, {len(bench)} clips per run; {label})")
+    del engine32
     bench30 = [(0.1 * rs.randn(30 * 16000)).astype(np.float32) for _ in range(3 * BATCH)]
     rates30 = clips_per_s(engine30, bench30)
     print(f"  embed_audio {rates30[0]:.1f} / {rates30[1]:.1f} clips/s (30-s clips, bf16, "
@@ -1214,7 +1328,8 @@ def run() -> dict:
                                   "plain_ms": times["log_mel_fast_3000"][1]},
             "links": links, "hgmma": hgmma, "silu_epilogue_mismatches": silu_bad,
             "variant_paths": variants, "inference_grads": grads,
-            "clips_per_s": {"10s_bf16": rates, "30s_bf16": rates30},
+            "clips_per_s": {"10s_bf16": rates, "10s_fp32": rates32, "30s_bf16": rates30},
+            "tiny_engine_cosine": tiny_cos,
             "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},
             "gpu": label}
 

@@ -5,7 +5,11 @@ and the fused routes' gradients on the card; the Hopper bf16 GEMM (every
 epilogue, ragged M, N and K, the caco_base shapes, the double rounding of
 EPI_BIAS_CAST_ADD, its silu against apply_epilogue over every fp32 input)
 and the Hopper bf16 attention forward (Dh 96 and causal Dh 64 at S = 1 …
-1536, the 80 clamp, an all-masked clip, K5's separate strides).
+1536, the 80 clamp, an all-masked clip, K5's separate strides); the
+register-tiled fp32 attention (Dh 16 … 128, S = 1 … 1536, causal and not),
+the SIMT GEMM in fp32 and bf16 at ragged M, N, K (N, K not multiples of 8)
+with every epilogue, the bf16 attention and K7 at head dims other than 64
+and 96, and the caco_tiny bf16 engine (K1 at Dh 16) against the CPU engine.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -93,15 +97,21 @@ def test_chain_matches_plain(cuda, dtype, b, s, lengths):
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """A head dim above 128 (bf16 and fp32, forward and K7), a mask that
+    is not int32, a bias of the wrong width, a half tensor, mixed devices."""
     qkv = torch.randn(4, 64, 3 * 192, device=cuda, dtype=torch.bfloat16)
     mask = torch.ones(4, 64, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim 192"):
         kern.attention(qkv, mask, 1)  # bf16 Dh = 192
+    with pytest.raises(ValueError, match="head dim 192"):
+        kern.attention_k4(qkv.float(), mask, 1)
+    with pytest.raises(ValueError, match="head dim 192"):
+        kern.attention_bwd(qkv, mask, qkv[..., :192].contiguous(), 1)
     with pytest.raises(ValueError, match="mask"):
         kern.attention(qkv, mask.long(), 2)
     w = torch.randn(576, 12, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        kern.gemm(qkv, w, torch.zeros(12, device=cuda), kern.EPI_BIAS)
+    with pytest.raises(ValueError, match="bias width"):
+        kern.gemm(qkv, w, torch.zeros(13, device=cuda), kern.EPI_BIAS)
     ones, zeros = torch.ones(576, device=cuda), torch.zeros(576, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         kern.layer_norm(qkv.half(), ones, zeros, 1e-6)
@@ -180,7 +190,7 @@ def _qkv(b, s, d, lengths, dtype, seed, scale=1.5):
 def _check(got, want, tol):
     got = got.cpu()
     assert torch.isfinite(got).all()
-    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=tol[0], rtol=tol[1])
+    np.testing.assert_allclose(got.float().numpy(), want.float().cpu().numpy(), atol=tol[0], rtol=tol[1])
 
 
 @pytest.mark.cuda
@@ -472,3 +482,106 @@ def test_k5_separate_strides_match_plain(cuda, s):
     assert kern.LAUNCHES["k5"] == 1
     _check(got, kern.attention_split_plain(q, kv, mask, 8), TOL_K45["bfloat16"])
     assert (got[2] == 0).all()
+
+
+# ---- any head dim up to 128, the fp32 attention and the SIMT GEMM ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd,heads", [(16, 4), (64, 4), (96, 8), (128, 3)])
+@pytest.mark.parametrize("s", [1, 63, 496, 1536])
+def test_fp32_attention_matches_plain(cuda, hd, heads, s, causal):
+    """The register-tiled fp32 kernel: ragged query and key tiles (S = 1,
+    63), the chains' S = 496 and 1536, padded keys, an all-masked clip that
+    gives exactly 0; held to the plain version on the card (TF32 off)."""
+    qkv, mask, _ = _qkv(3, s, heads * hd, [s, max(s // 3, 1), 0], torch.float32, 30)
+    qkv, mask = qkv.to(cuda), mask.to(cuda)
+    kern.reset_launches()
+    got = kern.attention_k4(qkv, mask, heads, causal)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k4"] == 1
+    _check(got, kern.attention_plain(qkv, mask, heads, causal), TOL_K45["float32"])
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,heads", [(16, 2), (20, 3), (32, 4), (48, 2), (128, 6)])
+def test_attention_at_any_head_dim_matches_plain(cuda, dtype, hd, heads):
+    """Head dims the wgmma kernel does not take (bf16 goes through the
+    mma.sync kernel; Dh 20 with 3 heads: rows not 16-byte aligned, read
+    element by element), the chain link, K4 causal and K5's strides."""
+    td = getattr(torch, dtype)
+    d = heads * hd
+    qkv, mask, _ = _qkv(3, 300, d, [300, 77, 0], td, 31)
+    qkv, mask = qkv.to(cuda), mask.to(cuda)
+    tol = TOL_K45[dtype]
+    got = kern.attention(qkv, mask, heads)
+    _check(got, kern.attention_plain(qkv, mask, heads), tol)
+    assert (got[2] == 0).all()
+    _check(kern.attention_k4(qkv, mask, heads, True), kern.attention_plain(qkv, mask, heads, True), tol)
+    q, kv = qkv[..., :d].contiguous(), qkv[..., d:].contiguous()
+    _check(kern.attention_k5(q, kv, mask, heads), kern.attention_split_plain(q, kv, mask, heads), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,heads,causal", [(16, 2, False), (20, 3, True), (32, 4, False),
+                                             (128, 2, True), (128, 6, False)])
+def test_k7_at_any_head_dim_matches_plain(cuda, dtype, hd, heads, causal):
+    """K7 at head dims other than 64 and 96 (fp32 Dh 128 needs more than 48
+    KB of shared memory); the all-masked clip's gradients are exactly 0."""
+    td = getattr(torch, dtype)
+    qkv, mask, gen = _qkv(3, 100, heads * hd, [100, 33, 0], td, 32)
+    g = torch.randn(3, 100, heads * hd, generator=gen).to(td)
+    got = kern.attention_bwd(qkv.to(cuda), mask.to(cuda), g.to(cuda), heads, causal)
+    torch.cuda.synchronize()
+    _check(got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), TOL_K7[dtype])
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", [kern.EPI_BIAS, kern.EPI_BIAS_RESID_F32, kern.EPI_BIAS_SILU,
+                                      kern.EPI_BIAS_CAST_ADD])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,k", [(300, 2300, 764),  # N, K not multiples of 8
+                                   (1, 1, 1),
+                                   (130, 7, 13),
+                                   (257, 768, 768),     # N a multiple of 4: fp32 16-byte loads
+                                   (4000, 2304, 768)])
+def test_gemm_at_ragged_shapes_matches_plain(cuda, epilogue, dtype, m, n, k):
+    """The SIMT GEMM (fp32, and bf16 where TMA cannot describe the
+    operands) and, for bf16 shapes TMA can describe, the wgmma kernel."""
+    td = getattr(torch, dtype)
+    a, w, bias, r = (t.to(cuda) for t in _gemm_inputs(m, n, k, 33))
+    a, w, r = a.to(td), w.to(td), r.to(td)
+    got = kern.gemm(a, w, bias, epilogue, r)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    _check(got, kern.gemm_plain(a, w, bias, epilogue, r), TOL_K45[dtype])
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_engine_on_the_card_matches_the_cpu(cuda):
+    """CacoEngine at caco_tiny width in bf16 on the card: every audio layer
+    is K1 (Dh 16); the embeddings agree with the CPU engine's (cosine
+    >= 0.999, the bf16-vs-fp32 bound)."""
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.models.caco import caco_init
+    from cacophony_tpu_torch.runtime import CacoEngine
+
+    cfg = configs.caco_tiny()
+    rs = np.random.RandomState(34)
+    wavs = [(0.1 * rs.randn(int(sec * 16000))).astype(np.float32) for sec in (10, 3.5, 0.2, 7, 12)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = caco_init(cfg, torch.Generator().manual_seed(0))
+        engine = CacoEngine(cfg, model, device=device, batch_size=4, dtype=torch.bfloat16)
+        _reset_layer_launches()
+        out[device] = engine.embed_audio(wavs)
+        if device == "cuda":
+            assert ea.LAYER_LAUNCHES["k1_layer"] == cfg.audio.num_layers * 2
+    a, b = out["cuda"], out["cpu"]
+    cos = (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+    assert a.shape == (5, cfg.projection_size) and np.isfinite(a).all()
+    assert cos.min() >= 0.999, cos

@@ -1,6 +1,7 @@
 """The port's CacoEngine on the routes beyond the 10-s default, against the
 JAX CacoEngine at caco_tiny: the 30-s buffer, embed_audio_long, the fused
-frontend, audio_patch_batch, and the bounded dispatch window.
+frontend, audio_patch_batch, a set `patches_seq_len`, and the bounded
+dispatch window.
 
 JAX kernels reached (Pallas interpret mode): at 30 s fp32 the layers take
 K3 over 1536 patches, at 30 s bf16 K1 over 1496 — the port takes the same
@@ -69,6 +70,23 @@ def test_30s_engine_matches_jax(tiny, dtype, seq, route):
     assert got.shape == (4, 32) and np.isfinite(got).all()
     np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
     np.testing.assert_allclose(got, ref, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("seconds,seq_len,expect", [(10.0, 200, 200), (10.0, None, 496),
+                                                    (30.0, 1400, 1536)])
+def test_patches_seq_len_matches_jax(tiny, seconds, seq_len, expect):
+    """`patches_seq_len` as the JAX engine takes it: None is the buffer's
+    patch count; a budget below it keeps each clip's first patches; either
+    is rounded by `preferred_seq_len` (1400 at 30 s in fp32 → the blocked
+    plan's 1536)."""
+    jax_engine, engine = _engines(tiny, "float32", buffer_seconds=seconds, patches_seq_len=seq_len)
+    assert engine.patch.patches_seq_len == jax_engine.patch.patches_seq_len == expect
+    wavs = _wavs([seconds, 2.5, 0.1, seconds + 3])
+    batch, _ = engine.audio_patch_batch(wavs)
+    assert batch["audio_mask"].shape == (4, expect)
+    ref, got = jax_engine.embed_audio(wavs), engine.embed_audio(wavs)
+    assert got.shape == (4, 32) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=TOL["float32"])
 
 
 @pytest.mark.parametrize("overlap", [0.0, 5.0])

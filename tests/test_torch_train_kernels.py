@@ -106,6 +106,29 @@ def test_k7_plain_matches_pallas_backward(dtype, causal):
     assert torch.isfinite(got).all() and (got[2] == 0).all()  # all-masked clip: zero gradients
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,heads", [(128, 1), (20, 3)])
+def test_k4_k7_plain_match_pallas_at_other_head_dims(dtype, hd, heads):
+    """The head dims the port's kernels now take beyond 64 and 96: the
+    widest (128) and one that is not a multiple of 8 (20), causal, against
+    `_pallas_forward` and `_pallas_backward`."""
+    rs = np.random.RandomState(4)
+    d = hd * heads
+    qkv = (1.5 * rs.randn(B, S, 3 * d)).astype(np.float32)
+    g = rs.randn(B, S, d).astype(np.float32)
+    mask = _mask(LENGTHS, S)
+    jd, td = DTYPES[dtype]
+    ref = jea._pallas_forward(jnp.asarray(qkv, jd), jnp.asarray(mask), heads, True, True)
+    got = kern.attention_k4(torch.from_numpy(qkv).to(td), torch.from_numpy(mask), heads, True)
+    _close(got, ref, dtype, step_share=1e-3)
+    ref = jea._pallas_backward(jnp.asarray(qkv, jd), jnp.asarray(mask), jnp.asarray(g, jd), heads,
+                               True, True)
+    got = kern.attention_bwd(torch.from_numpy(qkv).to(td), torch.from_numpy(mask),
+                             torch.from_numpy(g).to(td), heads, True)
+    _close(got, ref, dtype, grad=True)
+    assert (got[2] == 0).all()
+
+
 def _jax_grads(fn, args, g):
     out, vjp = jax.vjp(fn, *args)
     return out, vjp(g)
