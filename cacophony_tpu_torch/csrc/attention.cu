@@ -42,10 +42,12 @@
 //   - p = ex2(min(l, bias)·log2 e), flushing p below 2^-126 (a logit under
 //     ≈ -87) to 0 — such a row's P·V falls below fp32's normal range on the
 //     tensor cores anyway; the max-free softmax needs no rescale.
-// bf16 at any other head dim (1..128): attention_bf16_mma_kernel, mma.sync
-// with the head row rounded up to 16, 32, 64, 96 or 128 zero-filled columns.
-// fp32 (attention_f32_kernel): a register-tiled flash attention on the FMA
+// bf16 at any other head dim: attention_bf16_mma_kernel, mma.sync with the
+// head row rounded up to 16, 32, 64, 96 or 128 zero-filled columns.  fp32
+// (attention_f32_kernel): a register-tiled flash attention on the FMA
 // units, described above the kernel; Dh rounded up to 32, 64, 96 or 128.
+// A head wider than 128 runs either kernel in pieces of 128 output columns
+// (WIDE): every piece sums the logits over the whole head row.
 // Every kernel skips key tiles past a clip's last valid key and, causal,
 // past the q tile's last row (their p is 0).
 //
@@ -61,8 +63,6 @@ constexpr int AQ = 128;      // query rows per block (2 consumer warpgroups x 64
 constexpr int AKT = 128;     // keys per tile
 constexpr int ASTAGES = 2;
 constexpr int ATT_WG_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int ABOX = 32;     // columns per TMA box: 64 bytes, 64-byte swizzle
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct AttnArgs {
   const void* q;
@@ -86,28 +86,6 @@ struct AttnSmem {
   uint64_t full[ASTAGES], empty[ASTAGES], vready[ASTAGES], qbar;
   int last_key;  // the last valid key of the clip before k_end, -1 if none
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The clip's last valid key before k_lim, -1 if none (a block-wide scan:
-// every thread calls it; `slot` is a shared int).  Key tiles past it hold
-// only p = 0 and are skipped.
-__device__ __forceinline__ int last_valid_key(const int* mask_row, int k_lim, int* slot) {
-  if (threadIdx.x == 0) *slot = -1;
-  __syncthreads();
-  int last = -1;
-  for (int j = threadIdx.x; j < k_lim; j += blockDim.x)
-    if (mask_row[j] > 0) last = j;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
-  if ((threadIdx.x & 31) == 0 && last >= 0) atomicMax(slot, last);
-  __syncthreads();
-  return *slot;
-}
 
 template <int HD>
 __global__ void __launch_bounds__(ATT_WG_THREADS, 1)
@@ -286,13 +264,9 @@ cudaError_t launch_attention_bf16(const AttnArgs& a, int B, cudaStream_t st) {
   CUtensorMap maps[3];
   const void* bases[3] = {a.q, a.k, a.v};
   const size_t rows[3] = {a.q_row, a.kv_row, a.kv_row};
-  for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[3] = {D, static_cast<uint64_t>(a.S), static_cast<uint64_t>(B)};
-    const uint64_t strides[2] = {rows[i] * 2, rows[i] * 2 * a.S};
-    const uint32_t box[3] = {ABOX, static_cast<uint32_t>(i == 0 ? AQ : AKT), 1};
-    if (!make_tensor_map(&maps[i], bases[i], 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B))
+  for (int i = 0; i < 3; ++i)
+    if (!make_head_map(&maps[i], bases[i], D, rows[i], a.S, B, i == 0 ? AQ : AKT))
       return cudaErrorInvalidValue;
-  }
   auto kernel = attention_bf16_wgmma_kernel<HD>;
   constexpr size_t smem = sizeof(AttnSmem<HD>) + 1024;
   static const cudaError_t attr =
@@ -311,39 +285,41 @@ cudaError_t launch_attention_bf16(const AttnArgs& a, int B, cudaStream_t st) {
 // head row rounded up to HDP columns with zeros (zero columns add exact
 // zeros to every product); P goes from the logit accumulators straight into
 // the A fragments of P·V.
+// Heads wider than 128 columns (WIDE, HDP = 128): the grid has one block
+// per (query tile, 128-column piece of the output); each block sums Q·Kᵀ
+// over the whole head row, 128 columns of Q and K at a time through shared
+// memory, and writes only its piece of O.  The logits, the row sums and the
+// max-free softmax are the same numbers in every piece.
 constexpr int MQ = 64, MKT = 32, M_THREADS = 128;
 
-template <int HDP>
+template <int HDP, bool WIDE>
 __global__ void __launch_bounds__(M_THREADS)
     attention_bf16_mma_kernel(AttnArgs a, int HD, int vec) {
-  constexpr int LD = HDP + 8, CH = HDP / 8;
+  constexpr int LD = HDP + 8;
   __shared__ __align__(16) bf16 Qs[MQ * LD];
   __shared__ __align__(16) bf16 Ks[MKT * LD];
   __shared__ __align__(16) bf16 Vs[MKT * LD];
   __shared__ float kbias[MKT];
   __shared__ int last_key;
 
-  const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * MQ;
+  const int n_pieces = WIDE ? (HD + HDP - 1) / HDP : 1;
+  const int piece = blockIdx.x % n_pieces, c_out = piece * HDP;
+  const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / n_pieces) * MQ;
   const size_t row0 = static_cast<size_t>(b) * S, hoff = static_cast<size_t>(h) * HD;
   const bf16* qb = static_cast<const bf16*>(a.q) + row0 * a.q_row + hoff;
   const bf16* kb = static_cast<const bf16*>(a.k) + row0 * a.kv_row + hoff;
   const bf16* vb = static_cast<const bf16*>(a.v) + row0 * a.kv_row + hoff;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
 
-  // q scaled in the compute dtype
-  for (int c = tid; c < MQ * CH; c += M_THREADS) {
-    const int r = c / CH, ch = c % CH, s = q0 + r;
-    uint4 qv = load_cols8(qb + static_cast<size_t>(s) * a.q_row, ch * 8, HD, vec, s < S);
-    bf16* e = reinterpret_cast<bf16*>(&qv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
-    *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
-  }
+  // q scaled in the compute dtype (WIDE: 128 columns at a time, per key tile)
+  if constexpr (!WIDE) bf16_rows<HDP, MQ, M_THREADS>(Qs, qb, a.q_row, q0, S, 0, HD, vec, a.q_scale);
   const int k_lim = a.causal ? min(S, q0 + MQ) : S;
   const int k_end = min(k_lim, last_valid_key(a.mask + row0, k_lim, &last_key) + 1);
   unsigned qf[HDP / 16][4];
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) frag_a(qf[kk], Qs, LD, warp * 16, kk * 16);
+    for (int kk = 0; kk < HDP / 16; ++kk) frag_a(qf[kk], Qs, LD, warp * 16, kk * 16);
+  }
 
   float o[HDP / 8][4];
 #pragma unroll
@@ -353,35 +329,39 @@ __global__ void __launch_bounds__(M_THREADS)
   float rowsum[2] = {0.f, 0.f};
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   for (int k0 = 0; k0 < k_end; k0 += MKT) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < MKT * CH; c += M_THREADS) {
-      const int r = c / CH, ch = c % CH, s = k0 + r;
-      const size_t off = static_cast<size_t>(s) * a.kv_row;
-      *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(kb + off, ch * 8, HD, vec, s < S);
-      uint4 vv = load_cols8(vb + off, ch * 8, HD, vec, s < S);
-      bf16* e = reinterpret_cast<bf16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * VSCALE);
-      *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = vv;
-    }
-    for (int j = tid; j < MKT; j += M_THREADS) {
-      const int s = k0 + j;
-      kbias[j] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
-    }
-    __syncthreads();
     float sc[MKT / 8][4];
 #pragma unroll
     for (int n = 0; n < MKT / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    for (int c0 = 0; c0 < (WIDE ? HD : 1); c0 += HDP) {
+      __syncthreads();  // every warp is done with the previous tile (or piece of the row)
+      if constexpr (WIDE) bf16_rows<HDP, MQ, M_THREADS>(Qs, qb, a.q_row, q0, S, c0, HD, vec, a.q_scale);
+      bf16_rows<HDP, MKT, M_THREADS>(Ks, kb, a.kv_row, k0, S, c0, HD, vec, 1.f);
+      if (c0 == 0) {
+        bf16_rows<HDP, MKT, M_THREADS>(Vs, vb, a.kv_row, k0, S, c_out, HD, vec, VSCALE);
+        for (int j = tid; j < MKT; j += M_THREADS) {
+          const int s = k0 + j;
+          kbias[j] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
+        }
+      }
+      __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        unsigned qa[4];
+        if constexpr (WIDE) {
+          frag_a(qa, Qs, LD, warp * 16, kk * 16);
+        } else {
 #pragma unroll
-      for (int nj = 0; nj < MKT / 16; ++nj) {
-        unsigned kf[4];
-        frag_b_nk(kf, Ks, LD, nj * 16, kk * 16);
-        mma_bf16(sc[2 * nj], qf[kk], kf[0], kf[1]);
-        mma_bf16(sc[2 * nj + 1], qf[kk], kf[2], kf[3]);
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+        }
+#pragma unroll
+        for (int nj = 0; nj < MKT / 16; ++nj) {
+          unsigned kf[4];
+          frag_b_nk(kf, Ks, LD, nj * 16, kk * 16);
+          mma_bf16(sc[2 * nj], qa, kf[0], kf[1]);
+          mma_bf16(sc[2 * nj + 1], qa, kf[2], kf[3]);
+        }
       }
     }
 #pragma unroll
@@ -415,10 +395,10 @@ __global__ void __launch_bounds__(M_THREADS)
     const float rs = fmaxf(quad_sum(rowsum[half]), ROWSUM_FLOOR);
     const int s = row[half];
     if (s >= S) continue;
-    bf16* orow = static_cast<bf16*>(a.out) + (row0 + s) * D + hoff;
+    bf16* orow = static_cast<bf16*>(a.out) + (row0 + s) * D + hoff + c_out;
 #pragma unroll
     for (int n = 0; n < HDP / 8; ++n)
-      store_cols2(orow, n * 8 + 2 * t, HD, vec, (o[n][half * 2] / rs) * INV_VSCALE,
+      store_cols2(orow, n * 8 + 2 * t, HD - c_out, vec, (o[n][half * 2] / rs) * INV_VSCALE,
                   (o[n][half * 2 + 1] / rs) * INV_VSCALE);
   }
 }
@@ -503,13 +483,44 @@ __device__ __forceinline__ float f4_at(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// The logits of rows ty + 16i x keys tx + 16j over HDP columns of the
+// shared q and k tiles, added into sc.
 template <int HDP>
+__device__ __forceinline__ void f32_logits(float (&sc)[4][4], const float* q, const float* k, int ty,
+                                           int tx) {
+  constexpr int LD = HDP + 4;
+#pragma unroll 4
+  for (int d = 0; d < HDP; d += 4) {
+    float4 qa[4], ka[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(&q[(ty + 16 * i) * LD + d]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ka[j] = *reinterpret_cast<const float4*>(&k[(tx + 16 * j) * LD + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = fmaf(qa[i].x, ka[j].x, sc[i][j]);
+        sc[i][j] = fmaf(qa[i].y, ka[j].y, sc[i][j]);
+        sc[i][j] = fmaf(qa[i].z, ka[j].z, sc[i][j]);
+        sc[i][j] = fmaf(qa[i].w, ka[j].w, sc[i][j]);
+      }
+  }
+}
+
+// WIDE (HDP = 128, heads wider than 128): one block per (64 query rows,
+// 128-column piece of the output); per key tile the logits are summed over
+// the whole head row, Q and K copied 128 columns at a time (cp.async, then
+// a barrier), and V's piece is loaded while the exponentials run.
+template <int HDP, bool WIDE>
 __global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
     attention_f32_kernel(AttnArgs a, int HD, int vec) {
   constexpr int LD = HDP + 4, CP = HDP / 32;  // column pairs per thread
   extern __shared__ __align__(16) unsigned char smem_f32[];
   F32AttnSmem<HDP>& sm = *reinterpret_cast<F32AttnSmem<HDP>*>(smem_f32);
-  const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FQ;
+  const int n_pieces = WIDE ? (HD + HDP - 1) / HDP : 1;
+  const int c_out = (blockIdx.x % n_pieces) * HDP;
+  const int S = a.S, b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / n_pieces) * FQ;
   const size_t row0 = static_cast<size_t>(b) * S, hoff = static_cast<size_t>(h) * HD;
   const float* qb = static_cast<const float*>(a.q) + row0 * a.q_row + hoff;
   const float* kb = static_cast<const float*>(a.k) + row0 * a.kv_row + hoff;
@@ -517,23 +528,25 @@ __global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
 
-  f32_rows_async<HDP, FQ>(sm.q, qb, a.q_row, q0, S, HD, vec);
+  if constexpr (!WIDE) f32_rows_async<HDP, FQ>(sm.q, qb, a.q_row, q0, S, HD, vec);
   cp_async_commit();
   const int k_lim = a.causal ? min(S, q0 + FQ) : S;
   const int k_end = min(k_lim, last_valid_key(a.mask + row0, k_lim, &sm.last_key) + 1);
   const int n_tiles = (k_end + FKT - 1) / FKT;
-  auto load_k = [&](int t) {
-    const int k0 = t * FKT;
-    f32_rows_async<HDP, FKT>(sm.k, kb, a.kv_row, k0, S, HD, vec);
+  auto load_kbias = [&](int k0) {
     for (int j = tid; j < FKT; j += F_THREADS) {
       const int s = k0 + j;
       sm.kbias[j] = (s < S && a.mask[row0 + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
     }
   };
-  if (n_tiles > 0) load_k(0);
+  auto load_k = [&](int t) {
+    f32_rows_async<HDP, FKT>(sm.k, kb, a.kv_row, t * FKT, S, HD, vec);
+    load_kbias(t * FKT);
+  };
+  if (!WIDE && n_tiles > 0) load_k(0);
   cp_async_commit();
   cp_async_wait<1>();  // this thread's Q copies have landed
-  f32_rows_scale<HDP, FQ>(sm.q, vec, a.q_scale);
+  if constexpr (!WIDE) f32_rows_scale<HDP, FQ>(sm.q, vec, a.q_scale);
 
   float o[4][CP][2], rs[4];
 #pragma unroll
@@ -544,33 +557,32 @@ __global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * FKT;
-    cp_async_wait<0>();
-    __syncthreads();  // K of tile t and scaled Q are visible; P·V of tile t - 1 is done
-    f32_rows_async<HDP, FKT>(sm.v, vb, a.kv_row, k0, S, HD, vec);
-    cp_async_commit();
-
     // logits: rows ty + 16i x keys tx + 16j
     float sc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(&sm.q[(ty + 16 * i) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = *reinterpret_cast<const float4*>(&sm.k[(tx + 16 * j) * LD + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qa[i].x, ka[j].x, sc[i][j]);
-          sc[i][j] = fmaf(qa[i].y, ka[j].y, sc[i][j]);
-          sc[i][j] = fmaf(qa[i].z, ka[j].z, sc[i][j]);
-          sc[i][j] = fmaf(qa[i].w, ka[j].w, sc[i][j]);
-        }
+    if constexpr (WIDE) {
+      for (int c0 = 0; c0 < HD; c0 += HDP) {
+        __syncthreads();  // every thread is done with the shared q, k (and P·V of tile t - 1)
+        f32_rows_async<HDP, FQ>(sm.q, qb + c0, a.q_row, q0, S, HD - c0, vec);
+        f32_rows_async<HDP, FKT>(sm.k, kb + c0, a.kv_row, k0, S, HD - c0, vec);
+        if (c0 == 0) load_kbias(k0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        f32_rows_scale<HDP, FQ>(sm.q, vec, a.q_scale);
+        __syncthreads();
+        f32_logits<HDP>(sc, sm.q, sm.k, ty, tx);
+      }
+      f32_rows_async<HDP, FKT>(sm.v, vb + c_out, a.kv_row, k0, S, HD - c_out, vec);
+      cp_async_commit();
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // K of tile t and scaled Q are visible; P·V of tile t - 1 is done
+      f32_rows_async<HDP, FKT>(sm.v, vb, a.kv_row, k0, S, HD, vec);
+      cp_async_commit();
+      f32_logits<HDP>(sc, sm.q, sm.k, ty, tx);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -586,7 +598,7 @@ __global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
     cp_async_wait<0>();
     f32_rows_scale<HDP, FKT>(sm.v, vec, VSCALE);  // V·2^-24, as the Pallas kernel pre-scales V
     __syncthreads();  // P and the scaled V are visible; Q·Kᵀ of tile t is done
-    if (t + 1 < n_tiles) load_k(t + 1);
+    if (!WIDE && t + 1 < n_tiles) load_k(t + 1);
     cp_async_commit();
 
     // o += P · V·2^-24: rows ty + 16i x column pairs 2tx + 32c
@@ -626,30 +638,37 @@ __global__ void __launch_bounds__(F_THREADS, HDP <= 96 ? 2 : 1)
     const int r = ty + 16 * i, s = q0 + r;
     if (s >= S) continue;
     const float sum = fmaxf(sm.rowsum[0][r] + sm.rowsum[1][r], ROWSUM_FLOOR);
-    float* orow = static_cast<float*>(a.out) + (row0 + s) * D + hoff;
+    float* orow = static_cast<float*>(a.out) + (row0 + s) * D + hoff + c_out;
 #pragma unroll
     for (int c = 0; c < CP; ++c) {
       const int col = 2 * tx + 32 * c;
-      if (col < HD) orow[col] = (o[i][c][0] / sum) * INV_VSCALE;
-      if (col + 1 < HD) orow[col + 1] = (o[i][c][1] / sum) * INV_VSCALE;
+      if (col < HD - c_out) orow[col] = (o[i][c][0] / sum) * INV_VSCALE;
+      if (col + 1 < HD - c_out) orow[col + 1] = (o[i][c][1] / sum) * INV_VSCALE;
     }
   }
 }
 
+// Heads past 128 columns take the WIDE form at HDP = 128, one block per
+// 128-column piece of the output.
 template <int HDP>
 cudaError_t launch_attention_mma(const AttnArgs& a, int B, int HD, int vec, cudaStream_t st) {
-  attention_bf16_mma_kernel<HDP><<<dim3((a.S + MQ - 1) / MQ, a.H, B), M_THREADS, 0, st>>>(a, HD, vec);
+  const int pieces = (HD + HDP - 1) / HDP, q_tiles = (a.S + MQ - 1) / MQ;
+  if (pieces > 1)
+    attention_bf16_mma_kernel<HDP, true><<<dim3(q_tiles * pieces, a.H, B), M_THREADS, 0, st>>>(a, HD, vec);
+  else
+    attention_bf16_mma_kernel<HDP, false><<<dim3(q_tiles, a.H, B), M_THREADS, 0, st>>>(a, HD, vec);
   return cudaSuccess;
 }
 
-template <int HDP>
+template <int HDP, bool WIDE>
 cudaError_t launch_attention_f32(const AttnArgs& a, int B, int HD, int vec, cudaStream_t st) {
-  auto kernel = attention_f32_kernel<HDP>;
+  auto kernel = attention_f32_kernel<HDP, WIDE>;
   constexpr size_t smem = sizeof(F32AttnSmem<HDP>);
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<dim3((a.S + FQ - 1) / FQ, a.H, B), F_THREADS, smem, st>>>(a, HD, vec);
+  const int pieces = (HD + HDP - 1) / HDP;
+  kernel<<<dim3((a.S + FQ - 1) / FQ * pieces, a.H, B), F_THREADS, smem, st>>>(a, HD, vec);
   return cudaSuccess;
 }
 
@@ -657,15 +676,15 @@ cudaError_t launch_attention_f32(const AttnArgs& a, int B, int HD, int vec, cuda
 
 // q, k, v: base pointers of head 0 of row 0; q_row / kv_row: row strides in
 // elements (the batch stride is S rows).  out: contiguous (B, S, H·HD).
-// Any head dim from 1 to 128 (MAX_HEAD_DIM in ops/_kernels.py).  bf16 at
-// Dh 64 or 96 with rows TMA can describe (16-byte aligned bases, strides of
-// 8 elements) runs the wgmma kernel, any other bf16 head the mma.sync one;
-// fp32 the register-tiled kernel, each with Dh rounded up to its tile width.
+// Any head dim.  bf16 at Dh 64 or 96 with rows TMA can describe (16-byte
+// aligned bases, strides of 8 elements) runs the wgmma kernel, any other
+// bf16 head the mma.sync one; fp32 the register-tiled kernel, each with Dh
+// rounded up to its tile width, and past 128 in pieces of 128 columns.
 extern "C" int caco_attention(int dtype, const void* q, const void* k, const void* v, int q_row,
                               int kv_row, const int* mask, void* out, int B, int S, int H, int HD,
                               float q_scale, int causal, void* stream) {
   using namespace k1;
-  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0 || HD > 128 || q_row <= 0 || kv_row <= 0)
+  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0 || q_row <= 0 || kv_row <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AttnArgs a{q, k, v, static_cast<size_t>(q_row), static_cast<size_t>(kv_row), mask, out,
@@ -688,18 +707,20 @@ extern "C" int caco_attention(int dtype, const void* q, const void* k, const voi
     } else if (HD <= 96) {
       err = launch_attention_mma<96>(a, B, HD, vec, st);
     } else {
-      err = launch_attention_mma<128>(a, B, HD, vec, st);
+      err = launch_attention_mma<128>(a, B, HD, vec, st);  // past 128: pieces of 128
     }
   } else if (dtype == F32) {
     const int vec = aligned && HD % 4 == 0 && q_row % 4 == 0 && kv_row % 4 == 0;
     if (HD <= 32) {
-      err = launch_attention_f32<32>(a, B, HD, vec, st);
+      err = launch_attention_f32<32, false>(a, B, HD, vec, st);
     } else if (HD <= 64) {
-      err = launch_attention_f32<64>(a, B, HD, vec, st);
+      err = launch_attention_f32<64, false>(a, B, HD, vec, st);
     } else if (HD <= 96) {
-      err = launch_attention_f32<96>(a, B, HD, vec, st);
+      err = launch_attention_f32<96, false>(a, B, HD, vec, st);
+    } else if (HD <= 128) {
+      err = launch_attention_f32<128, false>(a, B, HD, vec, st);
     } else {
-      err = launch_attention_f32<128>(a, B, HD, vec, st);
+      err = launch_attention_f32<128, true>(a, B, HD, vec, st);
     }
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -13,27 +13,55 @@
 // fp32.  The output is dqkv in the fused layout.
 //
 // On the TPU one grid step held a batch row's (S, S) P and dP tiles in
-// VMEM.  An H100 block has 227 KB of shared memory, so this is the
-// flash-style split, and no (S, S) tensor goes to device memory:
+// VMEM.  An H100 block has 227 KB of shared memory, so the backward is
+// flash-style, and no (S, S) tensor goes to device memory.
+//
+// bf16 at Dh 64 and 96 (the training path), FlashAttention-2/3's shape on
+// wgmma + TMA (csrc/hopper.cuh), three launches:
+//   pre-pass (attn_bwd_pre_wgmma), one block per (128 queries, head, row),
+//     the forward's warpgroups: a TMA ring of 128-key K and V tiles; per
+//     tile Q·Kᵀ and dO·Vᵀ on wgmma, e = exp(min(l, kbias)), r += e,
+//     u += e ∘ dP; it stores r (floored) and Δ = u / r in `stats` and
+//     zeroes its rows of the fp32 dQ accumulator (B, S, D);
+//   main pass (attn_bwd_main_wgmma), one block per (64 keys, head, row):
+//     K and V stay in shared memory; a producer warp streams 64-query tiles
+//     of Q and dO by TMA into a 2-stage ring, three more warps write the
+//     scaled copy of Q; one consumer warpgroup per tile computes
+//       Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ (wgmma, both operands K-major),
+//       Pᵀ = e / r, rounded to bf16 in registers: dV += T(Pᵀ)·dO (RS form),
+//       dSᵀ = Pᵀ ∘ (dPᵀ − Δ) · 1/sqrt(Dh), rounded to bf16: dK += T(dSᵀ)·Q,
+//       dS staged in shared memory (64-byte swizzle, K-major): dQ = T(dS)·K,
+//     and adds dQ into the accumulator with fp32 atomics (four columns an
+//     atomic), so its sum order varies from run to run (within K7's bound,
+//     3e-2 + 2e-2·|x|);
+//   dq_to_bf16 writes the accumulator into dqkv's Q columns.
+// Seven S²·Dh products per head (the mma.sync pair below takes ten) and two
+// exponentials per logit, ex2 flushing p below 2^-126 to 0 as the wgmma
+// forward does (a row whose every logit lies below ≈ -87 gets zero
+// gradients, where the CPU keeps subnormals).  Key tiles with no valid key
+// are skipped (their dK and dV written as zeros), and so are, causal, query
+// tiles wholly before a key tile and key tiles past a query tile's last
+// row.  64 keys a block (one consumer warpgroup, two blocks an SM) timed
+// faster than 128 (two consumer warpgroups sharing the Q and dO ring).
+//
+// Every other bf16 head, and fp32: two kernels of the first port —
 //   kernel A, one block per (64-query tile, head, row): three sweeps over
 //     32-key tiles — the row sums, then Δ = Σ P∘dP, then dQ — and it
 //     stores the fp32 row sum and Δ of each (row, head, query);
 //   kernel B, one block per (64-key tile, head, row): a loop over 32-query
 //     tiles that recomputes P from the stored row sums, accumulates dV and
 //     dK in registers, and needs Δ only as a number per query.
+// bf16: mma.sync m16n8k16, four warps of 16 rows, the head row rounded up
+// to HDP columns loaded as zeros.  fp32: shared-memory FMA loops (lane per
+// key or per query) over the first Dh of FHD columns.  A head wider than
+// 128 (WIDE, HDP = FHD = 128) runs one block per 128-column piece of the
+// output: Q·Kᵀ, dO·Vᵀ and Δ are summed over the whole row, 128 columns at a
+// time through shared memory, and dQ, dK, dV written for the piece.
 // Fully masked rows have P = 0 everywhere, so their gradients are 0.
-// bf16: mma.sync m16n8k16, four warps of 16 rows, products straight from
-// the accumulators into the next product's A fragments (csrc/k1_common.cuh),
-// the head row rounded up to HDP columns loaded as zeros.  fp32:
-// shared-memory FMA loops (lane per key or per query) over the first Dh of
-// FHD columns.  Causal: tiles wholly after the diagonal are skipped (P = 0).
 //
-// Bound on the card: kernel A recomputes Q·Kᵀ three times and dO·Vᵀ twice
-// per tile, kernel B each once; ~11·S²·Dh flops per head against ~4 for
-// the forward, mma.sync issue and the exp per logit (tensor cores at a
-// fraction of peak).  The fused rewrite into one pass with atomics for dQ
-// is later work.
-#include "k1_common.cuh"
+// Bound on the card: five S²·Dh products per head on the tensor cores
+// (2·S·Dh flops each per valid key), and the exponentials.
+#include "hopper.cuh"
 
 namespace k1 {
 
@@ -53,107 +81,558 @@ struct BwdArgs {
   void* dqkv;       // (B, S, 3D)
   float* stats;     // (2, B, H, S): row sums, then Δ
   int B, S, H;
-  int HD;           // the head dim, at most the kernel's tile width
+  int HD;           // the head dim
   int vec;          // 16-byte row loads (HD a multiple of 8, 16-byte aligned bases)
   float q_scale;   // 1/sqrt(Dh) in the compute dtype
   float ds_scale;  // 1/sqrt(Dh) in fp32
   int causal;
 };
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------------- bf16, wgmma + TMA
+
+constexpr int PQ = 128;   // pre-pass: query rows per block (2 consumer warpgroups)
+constexpr int PKT = 128;  // pre-pass: keys per tile
+constexpr int BQ = 64;    // main pass: keys per block = queries per tile
+constexpr int BSTAGES = 2;
+
+template <int HD>
+struct BwdPreSmem {
+  static constexpr int C = HD / ABOX;
+  bf16 q[C][PQ * ABOX];
+  bf16 o[C][PQ * ABOX];  // dO
+  bf16 k[BSTAGES][C][PKT * ABOX];
+  bf16 v[BSTAGES][C][PKT * ABOX];
+  float kbias[BSTAGES][PKT];
+  uint64_t full[BSTAGES], empty[BSTAGES], qbar;
+  int last_key;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(384, 1)
+    attn_bwd_pre_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_g, const int* __restrict__ mask,
+                       float* __restrict__ stats, float* __restrict__ dq_acc, int B, int S, int H,
+                       float q_scale, int causal) {
+  constexpr int C = HD / ABOX;
+  extern __shared__ unsigned char smem_raw[];
+  BwdPreSmem<HD>& sm = *reinterpret_cast<BwdPreSmem<HD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * PQ;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  if (threadIdx.x == 0) {
+    prefetch_tensor_map(&map_q);
+    prefetch_tensor_map(&map_k);
+    prefetch_tensor_map(&map_v);
+    prefetch_tensor_map(&map_g);
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(&sm.full[s], 32);  // every producer lane (the key bias), lane 0 with the bytes
+      mbar_init(&sm.empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(&sm.qbar, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(&sm.qbar, 2 * C * PQ * ABOX * 2);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      tma_load_3d(sm.q[c], &map_q, &sm.qbar, h * HD + c * ABOX, q0, b);
+      tma_load_3d(sm.o[c], &map_g, &sm.qbar, h * HD + c * ABOX, q0, b);
+    }
+  }
+  const int k_lim = causal ? min(S, q0 + PQ) : S;
+  const int k_end = min(k_lim, last_valid_key(mask + static_cast<size_t>(b) * S, k_lim, &sm.last_key) + 1);
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (warp == 0) {  // producer: K and V tiles, and each tile's key bias
+      RingPos pos;
+      for (int k0 = 0; k0 < k_end; k0 += PKT) {
+        mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+        for (int j = lane; j < PKT; j += 32) {
+          const int s = k0 + j;
+          sm.kbias[pos.stage][j] =
+              (s < S && mask[static_cast<size_t>(b) * S + s] > 0) ? SOFTMAX_CLAMP : NEG_INF;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[pos.stage], 2 * C * PKT * ABOX * 2);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            tma_load_3d(sm.k[pos.stage][c], &map_k, &sm.full[pos.stage], h * HD + c * ABOX, k0, b);
+            tma_load_3d(sm.v[pos.stage][c], &map_v, &sm.full[pos.stage], h * HD + c * ABOX, k0, b);
+          }
+        } else {
+          mbar_arrive(&sm.full[pos.stage]);
+        }
+        pos.advance<BSTAGES>();
+      }
+    } else {  // warps 1-3: zero this block's rows of the dQ accumulator
+      const size_t D = static_cast<size_t>(H) * HD;
+      for (int i = tid - 32; i < PQ * HD / 4; i += 96) {
+        const int r = i / (HD / 4), s = q0 + r;
+        if (s < S)
+          reinterpret_cast<float4*>(dq_acc + (static_cast<size_t>(b) * S + s) * D + h * HD)[i % (HD / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {  // consumer warpgroup c: query rows 64c..64c+63 of the block
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1, g = lane / 4, t = lane % 4;
+    mbar_wait(&sm.qbar, 0);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {  // q scaled in the compute dtype, in place
+      uint4* rows = reinterpret_cast<uint4*>(sm.q[c] + cw * 64 * ABOX);
+      for (int i = tid; i < 64 * ABOX / 8; i += 128) {
+        uint4 v = rows[i];
+        bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * q_scale);
+        rows[i] = v;
+      }
+    }
+    fence_proxy_async();
+    warpgroup_bar(1 + cw);
+
+    float r[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};  // rows g and g + 8 of this warp
+    const int row0 = q0 + cw * 64 + warp * 16 + g;
+    RingPos pos;
+    for (int k0 = 0; k0 < k_end; k0 += PKT) {
+      mbar_wait(&sm.full[pos.stage], pos.phase);
+      float sc[PKT / 2], dp[PKT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int off = cw * 64 * ABOX + (ks % 2) * 16;
+        wgmma_ss_n128<0>(sc, smem_desc(sm.q[ks / 2] + off, 16, 512, SW64),
+                         smem_desc(sm.k[pos.stage][ks / 2] + (ks % 2) * 16, 16, 512, SW64), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int off = cw * 64 * ABOX + (ks % 2) * 16;
+        wgmma_ss_n128<0>(dp, smem_desc(sm.o[ks / 2] + off, 16, 512, SW64),
+                         smem_desc(sm.v[pos.stage][ks / 2] + (ks % 2) * 16, 16, 512, SW64), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      const float* kb = sm.kbias[pos.stage];
+#pragma unroll
+      for (int j = 0; j < PKT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * t + (e & 1);
+          float kbv = kb[col];
+          if (causal && k0 + col > row0 + (e >> 1) * 8) kbv = NEG_INF;
+          const float p = ex2(fminf(sc[4 * j + e], kbv) * LOG2E);
+          r[e >> 1] += p;
+          u[e >> 1] = fmaf(p, dp[4 * j + e], u[e >> 1]);
+        }
+      if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);
+      pos.advance<BSTAGES>();
+    }
+    const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
+    const size_t n_stat = static_cast<size_t>(B) * H * S;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float rs = fmaxf(quad_sum(r[half]), ROWSUM_FLOOR), us = quad_sum(u[half]);
+      const int s = row0 + half * 8;
+      if (s < S && t == 0) {
+        stats[stat0 + s] = rs;
+        stats[n_stat + stat0 + s] = us / rs;
+      }
+    }
+  }
+}
+
+template <int HD>
+struct BwdMainSmem {
+  static constexpr int C = HD / ABOX;
+  bf16 k[C][BQ * ABOX];
+  bf16 v[C][BQ * ABOX];
+  bf16 qr[BSTAGES][C][BQ * ABOX];  // q as it is: dK
+  bf16 qs[BSTAGES][C][BQ * ABOX];  // q scaled: the logits
+  bf16 o[BSTAGES][C][BQ * ABOX];   // dO
+  bf16 ds[2][BQ * ABOX];           // T(dS), queries x keys, K-major: the A of dQ
+  float rs[BSTAGES][BQ], dl[BSTAGES][BQ];
+  uint64_t full[BSTAGES], empty[BSTAGES], qready[BSTAGES], kvbar;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(256, 2)
+    attn_bwd_main_wgmma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_g, const int* __restrict__ mask,
+                        const float* __restrict__ stats, float* __restrict__ dq_acc,
+                        bf16* __restrict__ dqkv, int B, int S, int H, float q_scale,
+                        float ds_scale, int causal) {
+  constexpr int C = HD / ABOX;
+  extern __shared__ unsigned char smem_raw[];
+  BwdMainSmem<HD>& sm = *reinterpret_cast<BwdMainSmem<HD>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * BQ;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const size_t D = static_cast<size_t>(H) * HD, row0 = static_cast<size_t>(b) * S;
+  const size_t stat0 = (static_cast<size_t>(b) * H + h) * S;
+  const size_t n_stat = static_cast<size_t>(B) * H * S;
+
+  // A key tile without a valid key has P = 0: dK = dV = 0, and no dQ term.
+  const int kj = threadIdx.x;
+  const bool any = __syncthreads_or(kj < BQ && k0 + kj < S && mask[row0 + k0 + kj] > 0);
+  if (!any) {
+    for (int i = threadIdx.x; i < BQ * 2 * HD / 8; i += blockDim.x) {
+      const int r = i / (2 * HD / 8), c = i % (2 * HD / 8), s = k0 + r;
+      if (s < S)
+        *reinterpret_cast<uint4*>(dqkv + (row0 + s) * 3 * D + D + (c / (HD / 8)) * D + h * HD +
+                                  (c % (HD / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    prefetch_tensor_map(&map_q);
+    prefetch_tensor_map(&map_k);
+    prefetch_tensor_map(&map_v);
+    prefetch_tensor_map(&map_g);
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(&sm.full[s], 32);    // every producer lane (the row statistics), lane 0 with the bytes
+      mbar_init(&sm.empty[s], 4);    // lane 0 of each consumer warp
+      mbar_init(&sm.qready[s], 96);  // every thread of the scaling warps
+    }
+    mbar_init(&sm.kvbar, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(&sm.kvbar, 2 * C * BQ * ABOX * 2);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      tma_load_3d(sm.k[c], &map_k, &sm.kvbar, h * HD + c * ABOX, k0, b);
+      tma_load_3d(sm.v[c], &map_v, &sm.kvbar, h * HD + c * ABOX, k0, b);
+    }
+  }
+  __syncthreads();
+  // causal: queries before k0 attend to no key of this tile
+  const int q_begin = causal ? k0 : 0;
+
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    RingPos pos;
+    if (warp == 0) {  // producer: Q and dO tiles, and the tile's row sums and Δ
+      for (int q0 = q_begin; q0 < S; q0 += BQ) {
+        mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+        for (int j = lane; j < BQ; j += 32) {
+          const int s = q0 + j;
+          sm.rs[pos.stage][j] = s < S ? stats[stat0 + s] : 1.f;
+          sm.dl[pos.stage][j] = s < S ? stats[n_stat + stat0 + s] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[pos.stage], 2 * C * BQ * ABOX * 2);
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            tma_load_3d(sm.qr[pos.stage][c], &map_q, &sm.full[pos.stage], h * HD + c * ABOX, q0, b);
+            tma_load_3d(sm.o[pos.stage][c], &map_g, &sm.full[pos.stage], h * HD + c * ABOX, q0, b);
+          }
+        } else {
+          mbar_arrive(&sm.full[pos.stage]);
+        }
+        pos.advance<BSTAGES>();
+      }
+    } else {  // warps 1-3: qs = T(q · 1/sqrt(Dh)), elementwise (the swizzle does not matter)
+      for (int q0 = q_begin; q0 < S; q0 += BQ) {
+        mbar_wait(&sm.full[pos.stage], pos.phase);
+        const uint4* src = reinterpret_cast<const uint4*>(sm.qr[pos.stage][0]);
+        uint4* dst = reinterpret_cast<uint4*>(sm.qs[pos.stage][0]);
+        for (int i = tid - 32; i < C * BQ * ABOX / 8; i += 96) {
+          uint4 v = src[i];
+          bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * q_scale);
+          dst[i] = v;
+        }
+        fence_proxy_async();
+        mbar_arrive(&sm.qready[pos.stage]);
+        pos.advance<BSTAGES>();
+      }
+    }
+  } else {  // consumer warpgroup: keys k0 + warp·16 + g (+ 8)
+    setmaxnreg_inc<216>();
+    const int g = lane / 4, t = lane % 4;
+    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    bool kok[2];
+    float kbv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      kok[i] = key[i] < S && mask[row0 + key[i]] > 0;
+      kbv[i] = kok[i] ? SOFTMAX_CLAMP : NEG_INF;
+    }
+    float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(&sm.kvbar, 0);
+    RingPos pos;
+    for (int q0 = q_begin; q0 < S; q0 += BQ) {
+      mbar_wait(&sm.full[pos.stage], pos.phase);
+      mbar_wait(&sm.qready[pos.stage], pos.phase);
+      // Sᵀ = K · (q scaled)ᵀ and dPᵀ = V · dOᵀ: keys x queries
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int off = (ks % 2) * 16;
+        wgmma_ss_n64<0>(st, smem_desc(sm.k[ks / 2] + off, 16, 512, SW64),
+                        smem_desc(sm.qs[pos.stage][ks / 2] + off, 16, 512, SW64), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const int off = (ks % 2) * 16;
+        wgmma_ss_n64<0>(dpt, smem_desc(sm.v[ks / 2] + off, 16, 512, SW64),
+                        smem_desc(sm.o[pos.stage][ks / 2] + off, 16, 512, SW64), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      warpgroup_bar(1);  // every warp's dQ product of the previous tile has read sm.ds
+
+      // Pᵀ and dSᵀ in fp32, rounded to bf16 as the A fragments of dV and dK
+      const float* rsum = sm.rs[pos.stage];
+      const float* delta = sm.dl[pos.stage];
+      unsigned pf[BQ / 16][4], df[BQ / 16][4];
+      bf16* ds_tile = &sm.ds[0][0];
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = j * 8 + 2 * t + (e & 1), q = q0 + qc;
+          float kb = kbv[e >> 1];
+          if (causal && key[e >> 1] > q) kb = NEG_INF;
+          const float p = q < S ? ex2(fminf(st[4 * j + e], kb) * LOG2E) / rsum[qc] : 0.f;
+          pv[e] = p;
+          dsv[e] = (kok[e >> 1] ? p * (dpt[4 * j + e] - delta[qc]) : 0.f) * ds_scale;
+          ds_tile[sw64_index(qc, warp * 16 + g + (e >> 1) * 8, BQ)] = __float2bfloat16_rn(dsv[e]);
+        }
+        pf[j / 2][(j % 2) * 2] = pack_bf16x2(pv[0], pv[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(pv[2], pv[3]);
+        df[j / 2][(j % 2) * 2] = pack_bf16x2(dsv[0], dsv[1]);
+        df[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(dsv[2], dsv[3]);
+      }
+      fence_proxy_async();
+      warpgroup_bar(1);  // dS is in shared memory
+
+      float dq[HD / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dV += T(Pᵀ) · dO
+        wgmma_rs_hd<HD>(dv, pf[kk], smem_desc(sm.o[pos.stage][0] + kk * 16 * ABOX, BQ * ABOX * 2, 512, SW64));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dK += T(dSᵀ) · Q
+        wgmma_rs_hd<HD>(dk, df[kk], smem_desc(sm.qr[pos.stage][0] + kk * 16 * ABOX, BQ * ABOX * 2, 512, SW64));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dQ = T(dS) · K
+        wgmma_ss_hd<HD, 1>(dq, smem_desc(sm.ds[kk / 2] + (kk % 2) * 16, 16, 512, SW64),
+                           smem_desc(sm.k[0] + kk * 16 * ABOX, BQ * ABOX * 2, 512, SW64), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);
+
+      // dQ into the accumulator, four columns an atomic: lanes t and t ^ 1
+      // swap halves, so an even t adds row g, columns 2t..2t+3, an odd t
+      // row g + 8, columns 2t-2..2t+1
+      const int odd = t & 1, q = q0 + warp * 16 + g + odd * 8;
+      float* row = dq_acc + (row0 + q) * D + h * HD + 2 * (t - odd);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? dq[4 * n] : dq[4 * n + 2], 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? dq[4 * n + 1] : dq[4 * n + 3], 1);
+        const float4 v = odd ? make_float4(s0, s1, dq[4 * n + 2], dq[4 * n + 3])
+                             : make_float4(dq[4 * n], dq[4 * n + 1], s0, s1);
+        if (q < S) atomicAdd(reinterpret_cast<float4*>(row + n * 8), v);
+      }
+      pos.advance<BSTAGES>();
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int s = key[half];
+      if (s >= S) continue;
+      bf16* drow = dqkv + (row0 + s) * 3 * D + h * HD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(drow + D + n * 8) =
+            __floats2bfloat162_rn(dk[4 * n + half * 2], dk[4 * n + half * 2 + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(drow + 2 * D + n * 8) =
+            __floats2bfloat162_rn(dv[4 * n + half * 2], dv[4 * n + half * 2 + 1]);
+      }
+    }
+  }
+}
+
+// dqkv's Q columns = T(the fp32 dQ accumulator), eight columns a thread.
+__global__ void dq_to_bf16(const float* __restrict__ acc, bf16* __restrict__ dqkv, size_t rows, int D) {
+  const size_t n = rows * (D / 8);
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const float4 lo = *reinterpret_cast<const float4*>(acc + r * D + c);
+    const float4 hi = *reinterpret_cast<const float4*>(acc + r * D + c + 4);
+    uint4 out;
+    out.x = pack_bf16x2(lo.x, lo.y);
+    out.y = pack_bf16x2(lo.z, lo.w);
+    out.z = pack_bf16x2(hi.x, hi.y);
+    out.w = pack_bf16x2(hi.z, hi.w);
+    *reinterpret_cast<uint4*>(dqkv + r * 3 * D + c) = out;
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd_wgmma(const BwdArgs& a, float* dq_acc, cudaStream_t st) {
+  const size_t D = static_cast<size_t>(a.H) * HD;
+  const bf16* x = static_cast<const bf16*>(a.qkv);
+  // q, k, v, dO: the pre-pass reads 128-row boxes, the main pass 64-row ones
+  const void* bases[4] = {x, x + D, x + 2 * D, a.g};
+  const size_t rows[4] = {3 * D, 3 * D, 3 * D, D};
+  CUtensorMap pre[4], maps[4];
+  for (int i = 0; i < 4; ++i)
+    if (!make_head_map(&pre[i], bases[i], D, rows[i], a.S, a.B, PQ) ||
+        !make_head_map(&maps[i], bases[i], D, rows[i], a.S, a.B, BQ))
+      return cudaErrorInvalidValue;
+  auto pre_kernel = attn_bwd_pre_wgmma<HD>;
+  auto main_kernel = attn_bwd_main_wgmma<HD>;
+  constexpr size_t smem_pre = sizeof(BwdPreSmem<HD>) + 1024, smem_main = sizeof(BwdMainSmem<HD>) + 1024;
+  static const cudaError_t attr_pre =
+      cudaFuncSetAttribute(pre_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_pre);
+  static const cudaError_t attr_main =
+      cudaFuncSetAttribute(main_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_main);
+  if (attr_pre != cudaSuccess) return attr_pre;
+  if (attr_main != cudaSuccess) return attr_main;
+  pre_kernel<<<dim3((a.S + PQ - 1) / PQ, a.H, a.B), 384, smem_pre, st>>>(
+      pre[0], pre[1], pre[2], pre[3], a.mask, a.stats, dq_acc, a.B, a.S, a.H, a.q_scale, a.causal);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  main_kernel<<<dim3((a.S + BQ - 1) / BQ, a.H, a.B), 256, smem_main, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a.mask, a.stats, dq_acc, static_cast<bf16*>(a.dqkv), a.B,
+      a.S, a.H, a.q_scale, a.ds_scale, a.causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t rows_total = static_cast<size_t>(a.B) * a.S, n8 = rows_total * (D / 8);
+  const int blocks = n8 > 4096 * 256 ? 4096 : static_cast<int>((n8 + 255) / 256);
+  dq_to_bf16<<<blocks, 256, 0, st>>>(dq_acc, static_cast<bf16*>(a.dqkv), rows_total, static_cast<int>(D));
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------------ bf16, mma.sync
 
 // Shared memory of the bf16 kernels (dynamic: past 48 KB at HDP = 128).
 // Rows HDP + 8 elements apart keep ldmatrix conflict-free.
-template <int HDP>
+template <int HDP, bool WIDE>
 struct BwdQBf16Smem {
   static constexpr int LD = HDP + 8;
   bf16 Qs[QA * LD];  // q, scaled
   bf16 Os[QA * LD];  // dO
   bf16 Ks[KA * LD];
   bf16 Vs[KA * LD];
+  bf16 Kp[WIDE ? KA * LD : 8];  // WIDE: K's columns of this block's piece of dQ
   float kbias[KA];
   float kvalid[KA];
 };
 
-template <int HDP>
+template <int HDP, bool WIDE>
 struct BwdKVBf16Smem {
   static constexpr int LD = HDP + 8;
   bf16 Ks[KB * LD];
   bf16 Vs[KB * LD];
   bf16 Qs[QB * LD];  // q, scaled: the logits
-  bf16 Qr[QB * LD];  // q as it is: dK
+  bf16 Qr[QB * LD];  // q as it is, this block's piece: dK
   bf16 Os[QB * LD];  // dO
+  bf16 Op[WIDE ? QB * LD : 8];  // WIDE: dO's piece: dV
   float rsum[QB];
   float delta[QB];
 };
 
-template <int HDP>
+template <int HDP, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
-  constexpr int LD = HDP + 8, CH = HDP / 8;
+  constexpr int LD = HDP + 8;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
-  BwdQBf16Smem<HDP>& sm = *reinterpret_cast<BwdQBf16Smem<HDP>*>(smem_bwd);
-  bf16* Qs = sm.Qs;
-  bf16* Os = sm.Os;
-  bf16* Ks = sm.Ks;
-  bf16* Vs = sm.Vs;
-  float* kbias = sm.kbias;
-  float* kvalid = sm.kvalid;
+  BwdQBf16Smem<HDP, WIDE>& sm = *reinterpret_cast<BwdQBf16Smem<HDP, WIDE>*>(smem_bwd);
 
-  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QA;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y;
+  const int n_pieces = WIDE ? (HD + HDP - 1) / HDP : 1;
+  const int c_out = (blockIdx.x % n_pieces) * HDP, q0 = (blockIdx.x / n_pieces) * QA;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + static_cast<size_t>(h) * HD;
   const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + static_cast<size_t>(h) * HD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  for (int c = tid; c < QA * CH; c += BWD_THREADS) {
-    const int r = c / CH, ch = c % CH, s = q0 + r;
-    uint4 qv = load_cols8(x + s * ld3, ch * 8, HD, a.vec, s < S);
-    bf16* e = reinterpret_cast<bf16*>(&qv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
-    *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
-    *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load_cols8(go + static_cast<size_t>(s) * D, ch * 8, HD, a.vec, s < S);
-  }
-  __syncthreads();
   unsigned qf[HDP / 16][4], of[HDP / 16][4];
+  if constexpr (!WIDE) {
+    bf16_rows<HDP, QA, BWD_THREADS>(sm.Qs, x, ld3, q0, S, 0, HD, a.vec, a.q_scale);
+    bf16_rows<HDP, QA, BWD_THREADS>(sm.Os, go, D, q0, S, 0, HD, a.vec, 1.f);
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    frag_a(qf[kk], Qs, LD, warp * 16, kk * 16);
-    frag_a(of[kk], Os, LD, warp * 16, kk * 16);
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      frag_a(qf[kk], sm.Qs, LD, warp * 16, kk * 16);
+      frag_a(of[kk], sm.Os, LD, warp * 16, kk * 16);
+    }
   }
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const int k_end = a.causal ? min(S, q0 + QA) : S;
+  const bf16* Kd = WIDE ? sm.Kp : sm.Ks;  // K's columns of dQ
 
-  auto load_tile = [&](int k0) {
+  // The key tile at k0, columns c0..c0 + HDP of K (and of V for dP; WIDE:
+  // of q and dO too), its key bias at c0 = 0, and K's piece for dQ.
+  auto load_tile = [&](int k0, int c0, bool with_v, bool with_kp) {
     __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < KA * CH; c += BWD_THREADS) {
-      const int r = c / CH, ch = c % CH, s = k0 + r;
-      *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(x + s * ld3 + D, ch * 8, HD, a.vec, s < S);
-      *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load_cols8(x + s * ld3 + 2 * D, ch * 8, HD, a.vec, s < S);
+    if constexpr (WIDE) {
+      bf16_rows<HDP, QA, BWD_THREADS>(sm.Qs, x, ld3, q0, S, c0, HD, a.vec, a.q_scale);
+      if (with_v) bf16_rows<HDP, QA, BWD_THREADS>(sm.Os, go, D, q0, S, c0, HD, a.vec, 1.f);
+      if (with_kp && c0 == 0) bf16_rows<HDP, KA, BWD_THREADS>(sm.Kp, x + D, ld3, k0, S, c_out, HD, a.vec, 1.f);
     }
-    for (int j = tid; j < KA; j += BWD_THREADS) {
-      const int s = k0 + j;
-      const bool ok = s < S && a.mask[row0 + s] > 0;
-      kbias[j] = ok ? SOFTMAX_CLAMP : NEG_INF;
-      kvalid[j] = ok ? 1.f : 0.f;
-    }
+    bf16_rows<HDP, KA, BWD_THREADS>(sm.Ks, x + D, ld3, k0, S, c0, HD, a.vec, 1.f);
+    if (with_v) bf16_rows<HDP, KA, BWD_THREADS>(sm.Vs, x + 2 * D, ld3, k0, S, c0, HD, a.vec, 1.f);
+    if (c0 == 0)
+      for (int j = tid; j < KA; j += BWD_THREADS) {
+        const int s = k0 + j;
+        const bool ok = s < S && a.mask[row0 + s] > 0;
+        sm.kbias[j] = ok ? SOFTMAX_CLAMP : NEG_INF;
+        sm.kvalid[j] = ok ? 1.f : 0.f;
+      }
     __syncthreads();
   };
-  // p̃ = exp(min(q·k, kbias)) for this warp's 16 rows x the tile's 32 keys
-  auto probs = [&](float (&sc)[KA / 8][4], int k0) {
+  // p̃ = exp(min(q·k, kbias)) for this warp's 16 rows x the tile's 32 keys,
+  // and dP = dO · Vᵀ for the same rows and keys when with_dp
+  auto products = [&](float (&sc)[KA / 8][4], float (&dp)[KA / 8][4], int k0, bool with_dp,
+                      bool with_kp) {
 #pragma unroll
     for (int n = 0; n < KA / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+    for (int c0 = 0; c0 < (WIDE ? HD : 1); c0 += HDP) {
+      load_tile(k0, c0, with_dp, with_kp);
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        unsigned qa[4], oa[4];
+        if constexpr (WIDE) {
+          frag_a(qa, sm.Qs, LD, warp * 16, kk * 16);
+          if (with_dp) frag_a(oa, sm.Os, LD, warp * 16, kk * 16);
+        } else {
 #pragma unroll
-      for (int nj = 0; nj < KA / 16; ++nj) {
-        unsigned kf[4];
-        frag_b_nk(kf, Ks, LD, nj * 16, kk * 16);
-        mma_bf16(sc[2 * nj], qf[kk], kf[0], kf[1]);
-        mma_bf16(sc[2 * nj + 1], qf[kk], kf[2], kf[3]);
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i], oa[i] = of[kk][i];
+        }
+#pragma unroll
+        for (int nj = 0; nj < KA / 16; ++nj) {
+          unsigned kf[4];
+          frag_b_nk(kf, sm.Ks, LD, nj * 16, kk * 16);
+          mma_bf16(sc[2 * nj], qa, kf[0], kf[1]);
+          mma_bf16(sc[2 * nj + 1], qa, kf[2], kf[3]);
+          if (with_dp) {
+            unsigned vf[4];
+            frag_b_nk(vf, sm.Vs, LD, nj * 16, kk * 16);
+            mma_bf16(dp[2 * nj], oa, vf[0], vf[1]);
+            mma_bf16(dp[2 * nj + 1], oa, vf[2], vf[3]);
+          }
+        }
       }
     }
 #pragma unroll
@@ -161,34 +640,16 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);
-        float kbv = kbias[c];
+        float kbv = sm.kbias[c];
         if (a.causal && k0 + c > row[e >> 1]) kbv = NEG_INF;
         sc[n][e] = expf(fminf(sc[n][e], kbv));
       }
-  };
-  // dP = dO · Vᵀ for the same rows and keys
-  auto grad_p = [&](float (&dp)[KA / 8][4]) {
-#pragma unroll
-    for (int n = 0; n < KA / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < KA / 16; ++nj) {
-        unsigned vf[4];
-        frag_b_nk(vf, Vs, LD, nj * 16, kk * 16);
-        mma_bf16(dp[2 * nj], of[kk], vf[0], vf[1]);
-        mma_bf16(dp[2 * nj + 1], of[kk], vf[2], vf[3]);
-      }
-    }
   };
 
   float sc[KA / 8][4], dp[KA / 8][4];
   float rs[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < k_end; k0 += KA) {  // sweep 1: row sums
-    load_tile(k0);
-    probs(sc, k0);
+    products(sc, dp, k0, false, false);
 #pragma unroll
     for (int n = 0; n < KA / 8; ++n)
 #pragma unroll
@@ -198,9 +659,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
   for (int i = 0; i < 2; ++i) rs[i] = fmaxf(quad_sum(rs[i]), ROWSUM_FLOOR);
 
   for (int k0 = 0; k0 < k_end; k0 += KA) {  // sweep 2: Δ = Σ P ∘ dP
-    load_tile(k0);
-    probs(sc, k0);
-    grad_p(dp);
+    products(sc, dp, k0, true, false);
 #pragma unroll
     for (int n = 0; n < KA / 8; ++n)
 #pragma unroll
@@ -215,15 +674,13 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   for (int k0 = 0; k0 < k_end; k0 += KA) {  // sweep 3: dQ += T(dS) · K
-    load_tile(k0);
-    probs(sc, k0);
-    grad_p(dp);
+    products(sc, dp, k0, true, true);
 #pragma unroll
     for (int n = 0; n < KA / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = sc[n][e] / rs[e >> 1];
-        const float ds = kvalid[n * 8 + 2 * t + (e & 1)] > 0.f ? p * (dp[n][e] - dl[e >> 1]) : 0.f;
+        const float ds = sm.kvalid[n * 8 + 2 * t + (e & 1)] > 0.f ? p * (dp[n][e] - dl[e >> 1]) : 0.f;
         sc[n][e] = ds * a.ds_scale;
       }
     unsigned df[KA / 16][4];
@@ -233,7 +690,7 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
 #pragma unroll
       for (int dj = 0; dj < HDP / 16; ++dj) {
         unsigned kf[4];
-        frag_b_kn(kf, Ks, LD, kk * 16, dj * 16);
+        frag_b_kn(kf, Kd, LD, kk * 16, dj * 16);
         mma_bf16(dq[2 * dj], df[kk], kf[0], kf[1]);
         mma_bf16(dq[2 * dj + 1], df[kk], kf[2], kf[3]);
       }
@@ -246,31 +703,26 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_bf16(BwdArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int s = row[half];
     if (s >= S) continue;
-    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD;
+    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD + c_out;
 #pragma unroll
     for (int n = 0; n < HDP / 8; ++n)
-      store_cols2(drow, n * 8 + 2 * t, HD, a.vec, dq[n][half * 2], dq[n][half * 2 + 1]);
-    if (t == 0) {
+      store_cols2(drow, n * 8 + 2 * t, HD - c_out, a.vec, dq[n][half * 2], dq[n][half * 2 + 1]);
+    if (t == 0 && c_out == 0) {
       a.stats[stat0 + s] = rs[half];
       a.stats[n_stat + stat0 + s] = dl[half];
     }
   }
 }
 
-template <int HDP>
+template <int HDP, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
-  constexpr int LD = HDP + 8, CH = HDP / 8;
+  constexpr int LD = HDP + 8;
   extern __shared__ __align__(16) unsigned char smem_bwd[];
-  BwdKVBf16Smem<HDP>& sm = *reinterpret_cast<BwdKVBf16Smem<HDP>*>(smem_bwd);
-  bf16* Ks = sm.Ks;
-  bf16* Vs = sm.Vs;
-  bf16* Qs = sm.Qs;
-  bf16* Qr = sm.Qr;
-  bf16* Os = sm.Os;
-  float* rsum = sm.rsum;
-  float* delta = sm.delta;
+  BwdKVBf16Smem<HDP, WIDE>& sm = *reinterpret_cast<BwdKVBf16Smem<HDP, WIDE>*>(smem_bwd);
 
-  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KB;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y;
+  const int n_pieces = WIDE ? (HD + HDP - 1) / HDP : 1;
+  const int c_out = (blockIdx.x % n_pieces) * HDP, k0 = (blockIdx.x / n_pieces) * KB;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const bf16* x = static_cast<const bf16*>(a.qkv) + row0 * ld3 + static_cast<size_t>(h) * HD;
   const bf16* go = static_cast<const bf16*>(a.g) + row0 * D + static_cast<size_t>(h) * HD;
@@ -279,11 +731,11 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  for (int c = tid; c < KB * CH; c += BWD_THREADS) {
-    const int r = c / CH, ch = c % CH, s = k0 + r;
-    *reinterpret_cast<uint4*>(&Ks[r * LD + ch * 8]) = load_cols8(x + s * ld3 + D, ch * 8, HD, a.vec, s < S);
-    *reinterpret_cast<uint4*>(&Vs[r * LD + ch * 8]) = load_cols8(x + s * ld3 + 2 * D, ch * 8, HD, a.vec, s < S);
+  if constexpr (!WIDE) {
+    bf16_rows<HDP, KB, BWD_THREADS>(sm.Ks, x + D, ld3, k0, S, 0, HD, a.vec, 1.f);
+    bf16_rows<HDP, KB, BWD_THREADS>(sm.Vs, x + 2 * D, ld3, k0, S, 0, HD, a.vec, 1.f);
   }
+  const bf16* Od = WIDE ? sm.Op : sm.Os;  // dO's columns of dV
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   float kbv[2];
   bool kok[2];
@@ -301,44 +753,45 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
 
   const int q_begin = a.causal ? (k0 / QB) * QB : 0;
   for (int q0 = q_begin; q0 < S; q0 += QB) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < QB * CH; c += BWD_THREADS) {
-      const int r = c / CH, ch = c % CH, s = q0 + r;
-      uint4 qv = load_cols8(x + s * ld3, ch * 8, HD, a.vec, s < S);
-      *reinterpret_cast<uint4*>(&Qr[r * LD + ch * 8]) = qv;
-      bf16* e = reinterpret_cast<bf16*>(&qv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * a.q_scale);
-      *reinterpret_cast<uint4*>(&Qs[r * LD + ch * 8]) = qv;
-      *reinterpret_cast<uint4*>(&Os[r * LD + ch * 8]) = load_cols8(go + static_cast<size_t>(s) * D, ch * 8, HD, a.vec, s < S);
-    }
-    for (int j = tid; j < QB; j += BWD_THREADS) {
-      const int s = q0 + j;
-      rsum[j] = s < S ? a.stats[stat0 + s] : 1.f;
-      delta[j] = s < S ? a.stats[n_stat + stat0 + s] : 0.f;
-    }
-    __syncthreads();
-
-    // Pᵀ: this warp's 16 keys x the tile's 32 queries
+    // Pᵀ and dPᵀ: this warp's 16 keys x the tile's 32 queries, over the head row
     float st[QB / 8][4], dpt[QB / 8][4];
 #pragma unroll
     for (int n = 0; n < QB / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    for (int c0 = 0; c0 < (WIDE ? HD : 1); c0 += HDP) {
+      __syncthreads();  // every warp is done with the previous tile
+      if constexpr (WIDE) {
+        bf16_rows<HDP, KB, BWD_THREADS>(sm.Ks, x + D, ld3, k0, S, c0, HD, a.vec, 1.f);
+        bf16_rows<HDP, KB, BWD_THREADS>(sm.Vs, x + 2 * D, ld3, k0, S, c0, HD, a.vec, 1.f);
+      }
+      bf16_rows<HDP, QB, BWD_THREADS>(sm.Qs, x, ld3, q0, S, c0, HD, a.vec, a.q_scale);
+      bf16_rows<HDP, QB, BWD_THREADS>(sm.Os, go, D, q0, S, c0, HD, a.vec, 1.f);
+      if (c0 == 0) {
+        bf16_rows<HDP, QB, BWD_THREADS>(sm.Qr, x, ld3, q0, S, c_out, HD, a.vec, 1.f);
+        if constexpr (WIDE) bf16_rows<HDP, QB, BWD_THREADS>(sm.Op, go, D, q0, S, c_out, HD, a.vec, 1.f);
+        for (int j = tid; j < QB; j += BWD_THREADS) {
+          const int s = q0 + j;
+          sm.rsum[j] = s < S ? a.stats[stat0 + s] : 1.f;
+          sm.delta[j] = s < S ? a.stats[n_stat + stat0 + s] : 0.f;
+        }
+      }
+      __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      unsigned kf[4], vf[4];
-      frag_a(kf, Ks, LD, warp * 16, kk * 16);
-      frag_a(vf, Vs, LD, warp * 16, kk * 16);
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        unsigned kf[4], vf[4];
+        frag_a(kf, sm.Ks, LD, warp * 16, kk * 16);
+        frag_a(vf, sm.Vs, LD, warp * 16, kk * 16);
 #pragma unroll
-      for (int nj = 0; nj < QB / 16; ++nj) {
-        unsigned qf[4], of[4];
-        frag_b_nk(qf, Qs, LD, nj * 16, kk * 16);
-        frag_b_nk(of, Os, LD, nj * 16, kk * 16);
-        mma_bf16(st[2 * nj], kf, qf[0], qf[1]);
-        mma_bf16(st[2 * nj + 1], kf, qf[2], qf[3]);
-        mma_bf16(dpt[2 * nj], vf, of[0], of[1]);  // dPᵀ = V · dOᵀ
-        mma_bf16(dpt[2 * nj + 1], vf, of[2], of[3]);
+        for (int nj = 0; nj < QB / 16; ++nj) {
+          unsigned qf[4], of[4];
+          frag_b_nk(qf, sm.Qs, LD, nj * 16, kk * 16);
+          frag_b_nk(of, sm.Os, LD, nj * 16, kk * 16);
+          mma_bf16(st[2 * nj], kf, qf[0], qf[1]);
+          mma_bf16(st[2 * nj + 1], kf, qf[2], qf[3]);
+          mma_bf16(dpt[2 * nj], vf, of[0], of[1]);  // dPᵀ = V · dOᵀ
+          mma_bf16(dpt[2 * nj + 1], vf, of[2], of[3]);
+        }
       }
     }
 #pragma unroll
@@ -348,9 +801,9 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
         const int qc = n * 8 + 2 * t + (e & 1), q = q0 + qc;
         float kb = kbv[e >> 1];
         if (a.causal && key[e >> 1] > q) kb = NEG_INF;
-        const float p = q < S ? expf(fminf(st[n][e], kb)) / rsum[qc] : 0.f;
+        const float p = q < S ? expf(fminf(st[n][e], kb)) / sm.rsum[qc] : 0.f;
         st[n][e] = p;
-        const float ds = kok[e >> 1] ? p * (dpt[n][e] - delta[qc]) : 0.f;
+        const float ds = kok[e >> 1] ? p * (dpt[n][e] - sm.delta[qc]) : 0.f;
         dpt[n][e] = ds * a.ds_scale;
       }
     unsigned pf[QB / 16][4], df[QB / 16][4];
@@ -362,8 +815,8 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
 #pragma unroll
       for (int dj = 0; dj < HDP / 16; ++dj) {
         unsigned of[4], qf[4];
-        frag_b_kn(of, Os, LD, kk * 16, dj * 16);
-        frag_b_kn(qf, Qr, LD, kk * 16, dj * 16);
+        frag_b_kn(of, Od, LD, kk * 16, dj * 16);
+        frag_b_kn(qf, sm.Qr, LD, kk * 16, dj * 16);
         mma_bf16(dv[2 * dj], pf[kk], of[0], of[1]);
         mma_bf16(dv[2 * dj + 1], pf[kk], of[2], of[3]);
         mma_bf16(dk[2 * dj], df[kk], qf[0], qf[1]);
@@ -376,91 +829,117 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_bf16(BwdArgs a) {
   for (int half = 0; half < 2; ++half) {
     const int s = key[half];
     if (s >= S) continue;
-    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD;
+    bf16* drow = static_cast<bf16*>(a.dqkv) + (row0 + s) * ld3 + static_cast<size_t>(h) * HD + c_out;
 #pragma unroll
     for (int n = 0; n < HDP / 8; ++n) {
-      store_cols2(drow + D, n * 8 + 2 * t, HD, a.vec, dk[n][half * 2], dk[n][half * 2 + 1]);
-      store_cols2(drow + 2 * D, n * 8 + 2 * t, HD, a.vec, dv[n][half * 2], dv[n][half * 2 + 1]);
+      store_cols2(drow + D, n * 8 + 2 * t, HD - c_out, a.vec, dk[n][half * 2], dk[n][half * 2 + 1]);
+      store_cols2(drow + 2 * D, n * 8 + 2 * t, HD - c_out, a.vec, dv[n][half * 2], dv[n][half * 2 + 1]);
     }
   }
 }
 
 // ------------------------------------------------------------------ fp32
 
-template <int FHD>
+template <int FHD, bool WIDE>
 struct BwdQF32Smem {
   float Qs[F_QA][FHD];  // q, scaled
   float Os[F_QA][FHD];  // dO
   float Ks[F_T][FHD + 1];
   float Vs[F_T][FHD + 1];
+  float Kp[WIDE ? F_T : 1][FHD + 1];  // WIDE: K's columns of this block's piece of dQ
   float kbias[F_T];
   float kvalid[F_T];
 };
 
-template <int FHD>
+template <int FHD, bool WIDE>
 struct BwdKVF32Smem {
   float Ks[F_KB][FHD];
   float Vs[F_KB][FHD];
   float Qr[F_T][FHD + 1];  // q as it is; scaled on the fly for the logits
   float Os[F_T][FHD + 1];  // dO
+  float Qp[WIDE ? F_T : 1][FHD + 1];  // WIDE: the pieces of q and dO for dK and dV
+  float Op[WIDE ? F_T : 1][FHD + 1];
   float rsum[F_T];
   float delta[F_T];
 };
 
-template <int FHD>
+// dst[r][d] = src[(r0 + r)·stride + c0 + d]·scale for d < min(W, hd - c0),
+// zeros past S: ROWS rows, rows LD floats apart.
+template <int ROWS, int LD, int W>
+__device__ __forceinline__ void f32_rows(float* dst, const float* src, size_t stride, int r0, int S,
+                                         int c0, int hd, float scale) {
+  const int w = min(W, hd - c0);
+  for (int c = threadIdx.x; c < ROWS * w; c += BWD_THREADS) {
+    const int r = c / w, d = c % w, s = r0 + r;
+    dst[r * LD + d] = s < S ? src[static_cast<size_t>(s) * stride + c0 + d] * scale : 0.f;
+  }
+}
+
+template <int FHD, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_bwd[];
-  BwdQF32Smem<FHD>& sm = *reinterpret_cast<BwdQF32Smem<FHD>*>(smem_bwd);
+  BwdQF32Smem<FHD, WIDE>& sm = *reinterpret_cast<BwdQF32Smem<FHD, WIDE>*>(smem_bwd);
   auto& Qs = sm.Qs;
   auto& Os = sm.Os;
   auto& Ks = sm.Ks;
   auto& Vs = sm.Vs;
-  auto& kbias = sm.kbias;
-  auto& kvalid = sm.kvalid;
 
-  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * F_QA;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y;
+  const int n_pieces = WIDE ? (HD + FHD - 1) / FHD : 1;
+  const int c_out = (blockIdx.x % n_pieces) * FHD, q0 = (blockIdx.x / n_pieces) * F_QA;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const float* x = static_cast<const float*>(a.qkv) + row0 * ld3 + h * HD;
   const float* go = static_cast<const float*>(a.g) + row0 * D + h * HD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int RW = F_QA / 4;  // rows per warp
 
-  for (int c = tid; c < F_QA * HD; c += BWD_THREADS) {
-    const int r = c / HD, d = c % HD, s = q0 + r;
-    Qs[r][d] = s < S ? x[s * ld3 + d] * a.q_scale : 0.f;
-    Os[r][d] = s < S ? go[s * D + d] : 0.f;
+  if constexpr (!WIDE) {
+    f32_rows<F_QA, FHD, FHD>(&Qs[0][0], x, ld3, q0, S, 0, HD, a.q_scale);
+    f32_rows<F_QA, FHD, FHD>(&Os[0][0], go, D, q0, S, 0, HD, 1.f);
   }
   const int k_end = a.causal ? min(S, q0 + F_QA) : S;
+  const float(*Kd)[FHD + 1] = WIDE ? sm.Kp : sm.Ks;  // K's columns of dQ
 
-  auto load_tile = [&](int k0) {
-    __syncthreads();
-    for (int c = tid; c < F_T * HD; c += BWD_THREADS) {
-      const int r = c / HD, d = c % HD, s = k0 + r;
-      Ks[r][d] = s < S ? x[s * ld3 + D + d] : 0.f;
-      Vs[r][d] = s < S ? x[s * ld3 + 2 * D + d] : 0.f;
+  // l = q·k and dp = dO·v of this warp's rows against key k0 + lane, over
+  // the head row (WIDE: 128 columns at a time), and the tile's key bias;
+  // with_kp: K's piece for dQ.  Returns p̃ = exp(min(l, kbias)) in l.
+  auto products = [&](float (&l)[RW], float (&dp)[RW], int k0, bool with_dp, bool with_kp) {
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) l[rr] = dp[rr] = 0.f;
+    for (int c0 = 0; c0 < (WIDE ? HD : 1); c0 += FHD) {
+      __syncthreads();  // every warp is done with the previous tile
+      if constexpr (WIDE) {
+        f32_rows<F_QA, FHD, FHD>(&Qs[0][0], x, ld3, q0, S, c0, HD, a.q_scale);
+        if (with_dp) f32_rows<F_QA, FHD, FHD>(&Os[0][0], go, D, q0, S, c0, HD, 1.f);
+        if (with_kp && c0 == 0) f32_rows<F_T, FHD + 1, FHD>(&sm.Kp[0][0], x + D, ld3, k0, S, c_out, HD, 1.f);
+      }
+      f32_rows<F_T, FHD + 1, FHD>(&Ks[0][0], x + D, ld3, k0, S, c0, HD, 1.f);
+      if (with_dp) f32_rows<F_T, FHD + 1, FHD>(&Vs[0][0], x + 2 * D, ld3, k0, S, c0, HD, 1.f);
+      if (c0 == 0 && tid < F_T) {
+        const int s = k0 + tid;
+        const bool ok = s < S && a.mask[row0 + s] > 0;
+        sm.kbias[tid] = ok ? SOFTMAX_CLAMP : NEG_INF;
+        sm.kvalid[tid] = ok ? 1.f : 0.f;
+      }
+      __syncthreads();
+      const int w = WIDE ? min(FHD, HD - c0) : HD;
+#pragma unroll
+      for (int rr = 0; rr < RW; ++rr) {
+        const int r = warp * RW + rr;
+        for (int d = 0; d < w; ++d) l[rr] = fmaf(Qs[r][d], Ks[lane][d], l[rr]);
+        if (with_dp)
+          for (int d = 0; d < w; ++d) dp[rr] = fmaf(Os[r][d], Vs[lane][d], dp[rr]);
+      }
     }
-    if (tid < F_T) {
-      const int s = k0 + tid;
-      const bool ok = s < S && a.mask[row0 + s] > 0;
-      kbias[tid] = ok ? SOFTMAX_CLAMP : NEG_INF;
-      kvalid[tid] = ok ? 1.f : 0.f;
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) {
+      float kbv = sm.kbias[lane];
+      if (a.causal && k0 + lane > q0 + warp * RW + rr) kbv = NEG_INF;
+      l[rr] = expf(fminf(l[rr], kbv));
     }
-    __syncthreads();
-  };
-  auto prob = [&](int r, int k0) {  // p̃ of row r against key k0 + lane
-    float l = 0.f;
-    for (int d = 0; d < HD; ++d) l = fmaf(Qs[r][d], Ks[lane][d], l);
-    float kbv = kbias[lane];
-    if (a.causal && k0 + lane > q0 + r) kbv = NEG_INF;
-    return expf(fminf(l, kbv));
-  };
-  auto grad_p = [&](int r) {
-    float dp = 0.f;
-    for (int d = 0; d < HD; ++d) dp = fmaf(Os[r][d], Vs[lane][d], dp);
-    return dp;
   };
 
-  float rs[RW], dl[RW], dq[RW][FHD / 32];
+  float rs[RW], dl[RW], dq[RW][FHD / 32], pe[RW], dp[RW];
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     rs[rr] = dl[rr] = 0.f;
@@ -468,36 +947,31 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a) {
     for (int i = 0; i < FHD / 32; ++i) dq[rr][i] = 0.f;
   }
   for (int k0 = 0; k0 < k_end; k0 += F_T) {
-    load_tile(k0);
+    products(pe, dp, k0, false, false);
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr) rs[rr] += prob(warp * RW + rr, k0);
+    for (int rr = 0; rr < RW; ++rr) rs[rr] += pe[rr];
   }
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) rs[rr] = fmaxf(warp_sum(rs[rr]), ROWSUM_FLOOR);
   for (int k0 = 0; k0 < k_end; k0 += F_T) {
-    load_tile(k0);
+    products(pe, dp, k0, true, false);
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      const int r = warp * RW + rr;
-      dl[rr] += (prob(r, k0) / rs[rr]) * grad_p(r);
-    }
+    for (int rr = 0; rr < RW; ++rr) dl[rr] += (pe[rr] / rs[rr]) * dp[rr];
   }
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) dl[rr] = warp_sum(dl[rr]);
   for (int k0 = 0; k0 < k_end; k0 += F_T) {
-    load_tile(k0);
+    products(pe, dp, k0, true, true);
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
-      const int r = warp * RW + rr;
-      const float p = prob(r, k0) / rs[rr];
-      const float dp = grad_p(r);
-      const float ds = (kvalid[lane] > 0.f ? p * (dp - dl[rr]) : 0.f) * a.ds_scale;
+      const float p = pe[rr] / rs[rr];
+      const float ds = (sm.kvalid[lane] > 0.f ? p * (dp[rr] - dl[rr]) : 0.f) * a.ds_scale;
       for (int j = 0; j < F_T; ++j) {
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
         for (int i = 0; i < FHD / 32; ++i) {
           const int d = lane + 32 * i;
-          if (d < HD) dq[rr][i] = fmaf(dsj, Ks[j][d], dq[rr][i]);
+          if (d < HD - c_out) dq[rr][i] = fmaf(dsj, Kd[j][d], dq[rr][i]);
         }
       }
     }
@@ -509,31 +983,31 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_q_f32(BwdArgs a) {
   for (int rr = 0; rr < RW; ++rr) {
     const int s = q0 + warp * RW + rr;
     if (s >= S) continue;
-    float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
+    float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD + c_out;
 #pragma unroll
     for (int i = 0; i < FHD / 32; ++i) {
       const int d = lane + 32 * i;
-      if (d < HD) drow[d] = dq[rr][i];
+      if (d < HD - c_out) drow[d] = dq[rr][i];
     }
-    if (lane == 0) {
+    if (lane == 0 && c_out == 0) {
       a.stats[stat0 + s] = rs[rr];
       a.stats[n_stat + stat0 + s] = dl[rr];
     }
   }
 }
 
-template <int FHD>
+template <int FHD, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_bwd[];
-  BwdKVF32Smem<FHD>& sm = *reinterpret_cast<BwdKVF32Smem<FHD>*>(smem_bwd);
+  BwdKVF32Smem<FHD, WIDE>& sm = *reinterpret_cast<BwdKVF32Smem<FHD, WIDE>*>(smem_bwd);
   auto& Ks = sm.Ks;
   auto& Vs = sm.Vs;
   auto& Qr = sm.Qr;
   auto& Os = sm.Os;
-  auto& rsum = sm.rsum;
-  auto& delta = sm.delta;
 
-  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * F_KB;
+  const int S = a.S, H = a.H, HD = a.HD, D = H * HD, b = blockIdx.z, h = blockIdx.y;
+  const int n_pieces = WIDE ? (HD + FHD - 1) / FHD : 1;
+  const int c_out = (blockIdx.x % n_pieces) * FHD, k0 = (blockIdx.x / n_pieces) * F_KB;
   const size_t row0 = static_cast<size_t>(b) * S, ld3 = 3 * static_cast<size_t>(D);
   const float* x = static_cast<const float*>(a.qkv) + row0 * ld3 + h * HD;
   const float* go = static_cast<const float*>(a.g) + row0 * D + h * HD;
@@ -542,11 +1016,12 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int RW = F_KB / 4;  // key rows per warp
 
-  for (int c = tid; c < F_KB * HD; c += BWD_THREADS) {
-    const int r = c / HD, d = c % HD, s = k0 + r;
-    Ks[r][d] = s < S ? x[s * ld3 + D + d] : 0.f;
-    Vs[r][d] = s < S ? x[s * ld3 + 2 * D + d] : 0.f;
+  if constexpr (!WIDE) {
+    f32_rows<F_KB, FHD, FHD>(&Ks[0][0], x + D, ld3, k0, S, 0, HD, 1.f);
+    f32_rows<F_KB, FHD, FHD>(&Vs[0][0], x + 2 * D, ld3, k0, S, 0, HD, 1.f);
   }
+  const float(*Qd)[FHD + 1] = WIDE ? sm.Qp : sm.Qr;  // the columns of dK and dV
+  const float(*Od)[FHD + 1] = WIDE ? sm.Op : sm.Os;
   float kbv[RW];
   bool kok[RW];
   float dk[RW][FHD / 32], dv[RW][FHD / 32];
@@ -561,40 +1036,54 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
 
   const int q_begin = a.causal ? (k0 / F_T) * F_T : 0;
   for (int q0 = q_begin; q0 < S; q0 += F_T) {
-    __syncthreads();
-    for (int c = tid; c < F_T * HD; c += BWD_THREADS) {
-      const int r = c / HD, d = c % HD, s = q0 + r;
-      Qr[r][d] = s < S ? x[s * ld3 + d] : 0.f;
-      Os[r][d] = s < S ? go[s * D + d] : 0.f;
-    }
-    if (tid < F_T) {
-      const int s = q0 + tid;
-      rsum[tid] = s < S ? a.stats[stat0 + s] : 1.f;
-      delta[tid] = s < S ? a.stats[n_stat + stat0 + s] : 0.f;
-    }
-    __syncthreads();
     const int q = q0 + lane;  // this lane's query
+    float l[RW], dp[RW];
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) l[rr] = dp[rr] = 0.f;
+    for (int c0 = 0; c0 < (WIDE ? HD : 1); c0 += FHD) {
+      __syncthreads();
+      if constexpr (WIDE) {
+        f32_rows<F_KB, FHD, FHD>(&Ks[0][0], x + D, ld3, k0, S, c0, HD, 1.f);
+        f32_rows<F_KB, FHD, FHD>(&Vs[0][0], x + 2 * D, ld3, k0, S, c0, HD, 1.f);
+        if (c0 == 0) {
+          f32_rows<F_T, FHD + 1, FHD>(&sm.Qp[0][0], x, ld3, q0, S, c_out, HD, 1.f);
+          f32_rows<F_T, FHD + 1, FHD>(&sm.Op[0][0], go, D, q0, S, c_out, HD, 1.f);
+        }
+      }
+      f32_rows<F_T, FHD + 1, FHD>(&Qr[0][0], x, ld3, q0, S, c0, HD, 1.f);
+      f32_rows<F_T, FHD + 1, FHD>(&Os[0][0], go, D, q0, S, c0, HD, 1.f);
+      if (c0 == 0 && tid < F_T) {
+        const int s = q0 + tid;
+        sm.rsum[tid] = s < S ? a.stats[stat0 + s] : 1.f;
+        sm.delta[tid] = s < S ? a.stats[n_stat + stat0 + s] : 0.f;
+      }
+      __syncthreads();
+      const int w = WIDE ? min(FHD, HD - c0) : HD;
+#pragma unroll
+      for (int rr = 0; rr < RW; ++rr) {
+        const int kr = warp * RW + rr;
+        for (int d = 0; d < w; ++d) {
+          l[rr] = fmaf(Qr[lane][d] * a.q_scale, Ks[kr][d], l[rr]);
+          dp[rr] = fmaf(Os[lane][d], Vs[kr][d], dp[rr]);
+        }
+      }
+    }
 #pragma unroll
     for (int rr = 0; rr < RW; ++rr) {
       const int kr = warp * RW + rr;
-      float l = 0.f, dp = 0.f;
-      for (int d = 0; d < HD; ++d) {
-        l = fmaf(Qr[lane][d] * a.q_scale, Ks[kr][d], l);
-        dp = fmaf(Os[lane][d], Vs[kr][d], dp);
-      }
       float kb = kbv[rr];
       if (a.causal && k0 + kr > q) kb = NEG_INF;
-      const float p = q < S ? expf(fminf(l, kb)) / rsum[lane] : 0.f;
-      const float ds = (kok[rr] ? p * (dp - delta[lane]) : 0.f) * a.ds_scale;
+      const float p = q < S ? expf(fminf(l[rr], kb)) / sm.rsum[lane] : 0.f;
+      const float ds = (kok[rr] ? p * (dp[rr] - sm.delta[lane]) : 0.f) * a.ds_scale;
       for (int j = 0; j < F_T; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
         for (int i = 0; i < FHD / 32; ++i) {
           const int d = lane + 32 * i;
-          if (d < HD) {
-            dv[rr][i] = fmaf(pj, Os[j][d], dv[rr][i]);
-            dk[rr][i] = fmaf(dsj, Qr[j][d], dk[rr][i]);
+          if (d < HD - c_out) {
+            dv[rr][i] = fmaf(pj, Od[j][d], dv[rr][i]);
+            dk[rr][i] = fmaf(dsj, Qd[j][d], dk[rr][i]);
           }
         }
       }
@@ -605,11 +1094,11 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
   for (int rr = 0; rr < RW; ++rr) {
     const int s = k0 + warp * RW + rr;
     if (s >= S) continue;
-    float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD;
+    float* drow = static_cast<float*>(a.dqkv) + (row0 + s) * ld3 + h * HD + c_out;
 #pragma unroll
     for (int i = 0; i < FHD / 32; ++i) {
       const int d = lane + 32 * i;
-      if (d < HD) {
+      if (d < HD - c_out) {
         drow[D + d] = dk[rr][i];
         drow[2 * D + d] = dv[rr][i];
       }
@@ -618,50 +1107,56 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_kv_f32(BwdArgs a) {
 }
 
 // Kernel A, then kernel B; their shared memory passes the 48 KB static
-// limit at a width of 128 (bf16 and fp32).
-template <int HDP>
+// limit at a width of 128 (bf16 and fp32).  WIDE: one block per 128-column
+// piece of the head.
+template <int HDP, bool WIDE>
 cudaError_t launch_bwd_bf16(const BwdArgs& a, cudaStream_t st) {
-  constexpr size_t smem_q = sizeof(BwdQBf16Smem<HDP>), smem_kv = sizeof(BwdKVBf16Smem<HDP>);
+  constexpr size_t smem_q = sizeof(BwdQBf16Smem<HDP, WIDE>), smem_kv = sizeof(BwdKVBf16Smem<HDP, WIDE>);
   static const cudaError_t attr_q = cudaFuncSetAttribute(
-      attn_bwd_q_bf16<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+      attn_bwd_q_bf16<HDP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      attn_bwd_kv_bf16<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+      attn_bwd_kv_bf16<HDP, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (attr_q != cudaSuccess) return attr_q;
   if (attr_kv != cudaSuccess) return attr_kv;
-  attn_bwd_q_bf16<HDP><<<dim3((a.S + QA - 1) / QA, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
+  const int pieces = (a.HD + HDP - 1) / HDP;
+  attn_bwd_q_bf16<HDP, WIDE><<<dim3((a.S + QA - 1) / QA * pieces, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_kv_bf16<HDP><<<dim3((a.S + KB - 1) / KB, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
+  attn_bwd_kv_bf16<HDP, WIDE><<<dim3((a.S + KB - 1) / KB * pieces, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
   return cudaSuccess;
 }
 
-template <int FHD>
+template <int FHD, bool WIDE>
 cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
-  constexpr size_t smem_q = sizeof(BwdQF32Smem<FHD>), smem_kv = sizeof(BwdKVF32Smem<FHD>);
+  constexpr size_t smem_q = sizeof(BwdQF32Smem<FHD, WIDE>), smem_kv = sizeof(BwdKVF32Smem<FHD, WIDE>);
   static const cudaError_t attr_q = cudaFuncSetAttribute(
-      attn_bwd_q_f32<FHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+      attn_bwd_q_f32<FHD, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      attn_bwd_kv_f32<FHD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+      attn_bwd_kv_f32<FHD, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (attr_q != cudaSuccess) return attr_q;
   if (attr_kv != cudaSuccess) return attr_kv;
-  attn_bwd_q_f32<FHD><<<dim3((a.S + F_QA - 1) / F_QA, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
+  const int pieces = (a.HD + FHD - 1) / FHD;
+  attn_bwd_q_f32<FHD, WIDE><<<dim3((a.S + F_QA - 1) / F_QA * pieces, a.H, a.B), BWD_THREADS, smem_q, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_kv_f32<FHD><<<dim3((a.S + F_KB - 1) / F_KB, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
+  attn_bwd_kv_f32<FHD, WIDE><<<dim3((a.S + F_KB - 1) / F_KB * pieces, a.H, a.B), BWD_THREADS, smem_kv, st>>>(a);
   return cudaSuccess;
 }
 
 }  // namespace k1
 
 // qkv, dqkv: (B, S, 3·H·HD); g: (B, S, H·HD) in the same dtype; stats:
-// fp32 scratch of 2·B·H·S.  Kernel A, then kernel B, on the caller's stream.
-// Any head dim from 1 to 128, rounded up to the kernels' tile width (bf16:
-// 16, 32, 64, 96 or 128; fp32: 32, 64, 96 or 128) with zero columns.
+// fp32 scratch of 2·B·H·S; dq_acc: fp32 scratch of B·S·H·HD, needed in
+// bf16 and used by the wgmma route (Dh 64 or 96 with 16-byte aligned
+// bases), which launches three kernels; every other head launches kernel
+// A, then kernel B, on the caller's stream: any head dim, rounded up to the
+// kernels' tile width (bf16: 16, 32, 64, 96 or 128; fp32: 32, 64, 96 or
+// 128) with zero columns, and past 128 in pieces of 128.
 extern "C" int caco_attention_bwd(int dtype, const void* qkv, const int* mask, const void* g,
-                                  void* dqkv, float* stats, int B, int S, int H, int HD,
-                                  float q_scale, float ds_scale, int causal, void* stream) {
+                                  void* dqkv, float* stats, float* dq_acc, int B, int S, int H,
+                                  int HD, float q_scale, float ds_scale, int causal, void* stream) {
   using namespace k1;
-  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0 || HD > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || S <= 0 || H <= 0 || HD <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(g) |
                          reinterpret_cast<uintptr_t>(dqkv)) & 15) == 0;
@@ -669,16 +1164,21 @@ extern "C" int caco_attention_bwd(int dtype, const void* qkv, const int* mask, c
                   q_scale, ds_scale, causal};
   cudaError_t err;
   if (dtype == BF16) {
-    err = HD <= 16   ? launch_bwd_bf16<16>(a, st)
-          : HD <= 32 ? launch_bwd_bf16<32>(a, st)
-          : HD <= 64 ? launch_bwd_bf16<64>(a, st)
-          : HD <= 96 ? launch_bwd_bf16<96>(a, st)
-                     : launch_bwd_bf16<128>(a, st);
+    if (dq_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = a.vec && HD == 64 ? launch_bwd_wgmma<64>(a, dq_acc, st)
+          : a.vec && HD == 96 ? launch_bwd_wgmma<96>(a, dq_acc, st)
+          : HD <= 16 ? launch_bwd_bf16<16, false>(a, st)
+          : HD <= 32 ? launch_bwd_bf16<32, false>(a, st)
+          : HD <= 64 ? launch_bwd_bf16<64, false>(a, st)
+          : HD <= 96 ? launch_bwd_bf16<96, false>(a, st)
+          : HD <= 128 ? launch_bwd_bf16<128, false>(a, st)
+                      : launch_bwd_bf16<128, true>(a, st);
   } else if (dtype == F32) {
-    err = HD <= 32   ? launch_bwd_f32<32>(a, st)
-          : HD <= 64 ? launch_bwd_f32<64>(a, st)
-          : HD <= 96 ? launch_bwd_f32<96>(a, st)
-                     : launch_bwd_f32<128>(a, st);
+    err = HD <= 32   ? launch_bwd_f32<32, false>(a, st)
+          : HD <= 64 ? launch_bwd_f32<64, false>(a, st)
+          : HD <= 96 ? launch_bwd_f32<96, false>(a, st)
+          : HD <= 128 ? launch_bwd_f32<128, false>(a, st)
+                      : launch_bwd_f32<128, true>(a, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the bf16 GEMM (gemm.cu) and the bf16
-// attention forward (attention.cu): TMA tensor maps and loads, mbarrier
-// rings, wgmma shared-memory descriptors and instructions, register
-// rebalancing between a producer and consumer warpgroups (sm_90a only).
+// Hopper building blocks shared by the bf16 GEMM (gemm.cu), the bf16
+// attention forward (attention.cu) and its backward (attention_bwd.cu): TMA
+// tensor maps and loads, mbarrier rings, wgmma shared-memory descriptors and
+// instructions, register rebalancing between a producer and consumer
+// warpgroups (sm_90a only).
 //
 // Shared-memory operands are written by TMA with a 128-byte (GEMM) or
 // 64-byte (attention) swizzle and read by wgmma through descriptors of the
@@ -215,6 +216,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D(64x64, fp32) (+)= A(64x16, smem, K-major) * B(16x64, smem); TB: B is MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D(64x96, fp32) (+)= A(64x16, smem, K-major) * B(16x96, smem); TB: B is MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D(64xHD) (+)= A(smem) * B(smem) at the attention's head widths (64, 96).
+template <int HD, int TB>
+__device__ __forceinline__ void wgmma_ss_hd(float (&d)[HD / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (HD == 96)
+    wgmma_ss_n96<TB>(d, da, db, scale_d);
+  else
+    wgmma_ss_n64<TB>(d, da, db, scale_d);
+}
+
 // D(64x96, fp32) += A(64x16, registers) * B(16x96, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const unsigned (&a)[4], uint64_t db) {
   asm volatile(
@@ -233,6 +265,62 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const unsigned (&a)
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64xHD) += A(registers) * B(smem, MN-major) at the attention's head widths.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const unsigned (&a)[4], uint64_t db) {
+  if constexpr (HD == 96)
+    wgmma_rs_n96(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
+}
+
+// ---- shared by the attention forward and backward --------------------------
+
+constexpr int ABOX = 32;  // columns per TMA box: 64 bytes, 64-byte swizzle
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+
+// Element (row, col) of a tile stored as 32-column boxes of `rows` rows,
+// 64 bytes a row, with TMA's 64-byte swizzle (16-byte chunk c of row r at
+// c ^ ((r >> 1) & 3)); every box is aligned to 512 bytes.
+__device__ __forceinline__ int sw64_index(int row, int col, int rows) {
+  const int c = col & (ABOX - 1);
+  return (col / ABOX) * rows * ABOX + row * ABOX + (((c >> 3) ^ ((row >> 1) & 3)) << 3) + (c & 7);
+}
+
+// The clip's last valid key before k_lim, -1 if none (a block-wide scan:
+// every thread calls it; `slot` is a shared int).  Key tiles past it hold
+// only p = 0 and are skipped.
+__device__ __forceinline__ int last_valid_key(const int* mask_row, int k_lim, int* slot) {
+  if (threadIdx.x == 0) *slot = -1;
+  __syncthreads();
+  int last = -1;
+  for (int j = threadIdx.x; j < k_lim; j += blockDim.x)
+    if (mask_row[j] > 0) last = j;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  if ((threadIdx.x & 31) == 0 && last >= 0) atomicMax(slot, last);
+  __syncthreads();
+  return *slot;
+}
+
+// A bf16 tensor map over head columns of (B, S, ·) rows `row` elements
+// apart: 3-D (columns, S, B), boxes of 32 columns x box_rows rows, 64-byte
+// swizzle, so rows past S of a clip read as zero.
+inline bool make_head_map(CUtensorMap* map, const void* base, uint64_t cols, size_t row, int S,
+                          int B, uint32_t box_rows) {
+  const uint64_t dims[3] = {cols, static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {row * 2, row * 2 * S};
+  const uint32_t box[3] = {ABOX, box_rows, 1};
+  return make_tensor_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 }  // namespace k1

@@ -167,6 +167,25 @@ __device__ __forceinline__ uint4 load_cols8(const bf16* row, int c, int hd, bool
   return r;
 }
 
+// ROWS rows from r0 of a bf16 head slice (row stride `stride`), columns
+// c0..c0 + HDP of a head of width hd, into shared rows HDP + 8 apart, times
+// `scale` unless it is 1, zeros past S and hd.  THREADS threads share it.
+template <int HDP, int ROWS, int THREADS>
+__device__ __forceinline__ void bf16_rows(bf16* dst, const bf16* src, size_t stride, int r0, int S,
+                                          int c0, int hd, int vec, float scale) {
+  constexpr int LD = HDP + 8, CH = HDP / 8;
+  for (int c = threadIdx.x % THREADS; c < ROWS * CH; c += THREADS) {
+    const int r = c / CH, ch = c % CH, s = r0 + r;
+    uint4 v = load_cols8(src + static_cast<size_t>(s) * stride + c0, ch * 8, hd - c0, vec, s < S);
+    if (scale != 1.f) {
+      bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * scale);
+    }
+    *reinterpret_cast<uint4*>(&dst[r * LD + ch * 8]) = v;
+  }
+}
+
 // Columns c, c+1 (c even) of a bf16 head row of width hd: the columns
 // below hd, as one 4-byte store when `vec` (then hd is even).
 __device__ __forceinline__ void store_cols2(bf16* row, int c, int hd, bool vec, float v0, float v1) {

@@ -46,7 +46,8 @@ EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD = range(4)
 
 # One count per wrapper: "attention" is the attention inside the K1/K2/K3
 # (and K3′/K6) chains, "k4" and "k5" the stand-alone attention kernels, "k7"
-# K4's backward (one count per call, which launches its two CUDA kernels),
+# K4's backward (one count per call, which launches its two or three CUDA
+# kernels),
 # "log_mel" K8 and "log_mel_fast" its bf16×3 form K8′.
 LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "k4": 0, "k5": 0,
                             "k7": 0, "log_mel": 0, "log_mel_fast": 0}
@@ -56,10 +57,6 @@ _SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "caco
             "log_mel": "k8_log_mel", "log_mel_fast": "k8_log_mel_fast"}
 
 _VSCALE = 2.0 ** -24
-# The widest head the attention kernels take (csrc/attention.cu,
-# attention_bwd.cu: the head row is rounded up to a tile of at most 128
-# columns).  The Pallas kernels have no such limit; see ROADMAP queue C.
-MAX_HEAD_DIM = 128
 _SOFTMAX_CLAMP = 80.0
 _NEG_INF = -1e30
 _ROWSUM_FLOOR = 1e-37
@@ -144,7 +141,7 @@ def load_library() -> ctypes.CDLL:
     lib.k1_layer_norm.argtypes = [i, p, p, p, p, i, i, f, p]
     lib.k1_gemm.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
     lib.caco_attention.argtypes = [i, p, p, p, i, i, p, p, i, i, i, i, f, i, p]
-    lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, i, i, i, i, f, f, i, p]
+    lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
     lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
     lib.k1_silu_sweep.argtypes = [p, p]
@@ -340,24 +337,19 @@ def attention_split_plain(q, kv, mask, num_heads: int):
     return attention_core_plain(q, *kv.chunk(2, dim=-1), mask, num_heads)
 
 
-def _check_head_dim(hd: int) -> None:
-    _need(0 < hd <= MAX_HEAD_DIM, f"head dim {hd} (1 to {MAX_HEAD_DIM})")
-
-
 def attention_operands(q, k, v, q_row: int, kv_row: int, mask, num_heads: int):
     """The attention kernel's contract → (B, S, D, Dh); raises ValueError
-    on what csrc/attention.cu does not take.  Host-side only.  Any head dim
-    up to MAX_HEAD_DIM, any alignment: the kernel reads 16 bytes at a time
-    where the rows allow it (bf16 at Dh 64 or 96 then runs on wgmma + TMA)
-    and element by element elsewhere."""
+    on what csrc/attention.cu does not take.  Host-side only.  Any head
+    dim, any alignment: the kernel reads 16 bytes at a time where the rows
+    allow it (bf16 at Dh 64 or 96 then runs on wgmma + TMA) and element by
+    element elsewhere; a head past 128 columns runs in pieces of 128."""
     b, s, d = q.shape[0], q.shape[1], q.shape[-1]
     hd = d // num_heads
     _need(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype, f"dtype {q.dtype}")
     _need(d % num_heads == 0, f"width {d} with {num_heads} heads")
     _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
           "mask must be contiguous int32 (B, S)")
-    _check_head_dim(hd)
-    _need(b > 0 and s > 0, "empty q/k/v")
+    _need(b > 0 and s > 0 and hd > 0, "empty q/k/v")
     _need(all(t.stride(-1) == 1 and t.stride(1) == row and t.stride(0) == s * row
               for t, row in ((q, q_row), (k, kv_row), (v, kv_row))),
           "q/k/v rows must be the given row strides apart, clips S rows apart")
@@ -434,8 +426,11 @@ def attention_bwd_plain(qkv, mask, g, num_heads: int, causal: bool = False):
 
 def attention_bwd(qkv, mask, g, num_heads: int, causal: bool = False):
     """K7: d qkv (B, S, 3D) for the output gradient g (B, S, D)
-    (csrc/attention_bwd.cu: a pass per query tile for the row sums, Δ and
-    dQ, then a pass per key tile for dK and dV)."""
+    (csrc/attention_bwd.cu).  bf16 at Dh 64 and 96: a pre-pass per query
+    tile for the row sums and Δ, a main pass per key tile for dK, dV and dQ
+    (fp32 atomics into the `dq_acc` scratch), a conversion of dQ; any other
+    head: a pass per query tile for the row sums, Δ and dQ, then a pass per
+    key tile for dK and dV."""
     if _device_kind(qkv, mask, g) == "cpu":
         return attention_bwd_plain(qkv, mask, g, num_heads, causal)
     _check_common(qkv)
@@ -447,10 +442,13 @@ def attention_bwd(qkv, mask, g, num_heads: int, causal: bool = False):
           "g must be contiguous (B, S, D) in qkv's dtype")
     _need(mask.shape == (b, s) and mask.dtype == torch.int32 and mask.is_contiguous(),
           "mask must be contiguous int32 (B, S)")
-    _check_head_dim(hd)
+    _need(b > 0 and s > 0 and hd > 0, "empty qkv")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(2 * b * num_heads * s, dtype=torch.float32, device=qkv.device)
+    dq_acc = (torch.empty(b, s, d, dtype=torch.float32, device=qkv.device)
+              if qkv.dtype == torch.bfloat16 else None)
     _launch("k7", qkv.device, _DTYPE_CODE[qkv.dtype], qkv.data_ptr(), mask.data_ptr(),
-            g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, num_heads, hd,
+            g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            dq_acc.data_ptr() if dq_acc is not None else None, b, s, num_heads, hd,
             q_scale(hd, qkv.dtype), ds_scale(hd), int(causal))
     return dqkv

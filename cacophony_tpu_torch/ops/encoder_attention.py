@@ -66,9 +66,11 @@ K4 as a `torch.autograd.Function` whose backward is K7 when the reference's
 `bwd_fits_vmem` holds, and otherwise autograd through `xla_attention`, the
 textbook softmax with −1e30 masking that JAX's rematerialising backward
 differentiates (encoder_attention.py:1223-1238).  `encoder_attention_blocked`
-is K5 over Q and K|V padded to the blocked plan's length, padded keys
-masked and padded query rows sliced away; its backward is autograd through
-`xla_attention_split` at the unpadded length (:1276-1287).
+is K5 (JAX pads Q and K|V to the blocked plan's length, masks the padded
+keys and slices the padded query rows away; the kernel, run at the clip
+length, gives the same output without the padding copies); its backward
+is autograd through `xla_attention_split` at the unpadded length
+(:1276-1287).
 """
 
 from __future__ import annotations
@@ -503,27 +505,25 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
                                    num_heads, causal)
 
 
-def _blocked_forward(q, kv, mask, num_heads: int, attend):
-    """Pad Q, K|V and the mask to the blocked plan's length, attend, slice
-    the padded query rows away (`_pallas_forward_blocked`, :351-388)."""
-    s, d = q.shape[1], q.shape[-1]
-    plan = kernel_plan(s, d, q.dtype)
+def _blocked_plan(q):
+    s = q.shape[1]
+    plan = kernel_plan(s, q.shape[-1], q.dtype)
     if plan is None or plan[0] != "blocked":
         raise ValueError(f"K5 needs a blocked plan; seq {s} has {plan}")
-    pad = plan[1] - s
-    q, kv = (torch.nn.functional.pad(t, (0, 0, 0, pad)).contiguous() for t in (q, kv))
-    mask = torch.nn.functional.pad(mask.to(torch.int32), (0, pad)).contiguous()
-    return attend(q, kv, mask, num_heads)[:, :s]
+    return plan
 
 
 class _EncoderAttentionBlocked(torch.autograd.Function):
-    """K5 forward; backward by autograd of `xla_attention_split` at the unpadded length."""
+    """K5 forward at the clip length: the kernel zero-fills rows past S and
+    gives keys past S p = 0, so its output equals JAX's padded call bit for
+    bit (the padded keys are masked, the padded query rows sliced away);
+    backward by autograd of `xla_attention_split` at the unpadded length."""
 
     @staticmethod
     def forward(ctx, q, kv, mask, num_heads):
         ctx.save_for_backward(q, kv, mask)
         ctx.num_heads = num_heads
-        return _blocked_forward(q, kv, mask, num_heads, kern.attention_k5)
+        return kern.attention_k5(q, kv, mask, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -538,10 +538,19 @@ class _EncoderAttentionBlocked(torch.autograd.Function):
 def encoder_attention_blocked(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
                               num_heads: int) -> torch.Tensor:
     """K5: Q (B, S, D) and K|V (B, S, 2D) + (B, S) key mask → (B, S, D),
-    differentiable; the plan must be blocked."""
-    return _EncoderAttentionBlocked.apply(q, kv, mask, num_heads)
+    differentiable; the plan must be blocked, as `_pallas_forward_blocked`
+    asserts."""
+    _blocked_plan(q)
+    return _EncoderAttentionBlocked.apply(q.contiguous(), kv.contiguous(),
+                                          mask.to(torch.int32).contiguous(), num_heads)
 
 
 def encoder_attention_blocked_plain(q, kv, mask, num_heads: int) -> torch.Tensor:
-    """K5's forward through the plain version, on any device."""
-    return _blocked_forward(q, kv, mask, num_heads, kern.attention_split_plain)
+    """K5's forward through the plain version, on any device, as
+    `_pallas_forward_blocked` (:351-388) runs it: Q, K|V and the mask padded
+    to the blocked plan's length, the padded query rows sliced away."""
+    s = q.shape[1]
+    pad = _blocked_plan(q)[1] - s
+    q, kv = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, kv))
+    mask = torch.nn.functional.pad(mask.to(torch.int32), (0, pad))
+    return kern.attention_split_plain(q, kv, mask, num_heads)[:, :s]

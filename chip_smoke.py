@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no final `ok` line):
 1. print the card's name and power limit (nvidia-smi); build the CUDA
    kernels from cacophony_tpu_torch/csrc (one nvcc per source, in parallel);
    where the toolkit has cuobjdump, count the HGMMA (wgmma) instructions of
-   the bf16 GEMM and attention kernels in the built library (none fails);
+   the bf16 GEMM, the attention forward and K7's pre-pass and main pass in
+   the built library (none fails);
    sweep the bf16 GEMM's branch-free silu epilogue against apply_epilogue
    over every fp32 input (any differing bit fails);
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
@@ -53,16 +54,22 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    finite), fp32 at B=2 (K2 route) against the CPU (relative L2 <= 1e-4);
 9. K4, K5 and K7 against their plain versions: K4 at B=8, S=500, H=8,
    Dh=96 in bf16 and fp32 and causal at H=12, Dh=64, S=100, padded keys
-   and an all-masked clip; K5 at S=1500 padded to 1536 in bf16; K7 in bf16
+   and an all-masked clip; K5 at S=1500 (the plain version padded to
+   1536), and bit-identical to the kernel over the padded row; K7 in bf16
    at S=500 and fp32 at S=100, causal and not, the all-masked clip's
    gradients finite and zero; the attention link, K4 (causal) and K7 at
    head dims 16, 32 and 128 in bf16 and fp32, with an all-masked clip and
-   with logits far above the clamp of 80;
+   with logits far above the clamp of 80; the wgmma K7 at Dh 64 and 96,
+   S = 1, 63, 128, 500, 579, causal and not, logits above the clamp; heads
+   past 128 columns (Dh 160, 192, 256, 384) in both dtypes for the
+   attention link, K4 causal, K5's strides and K7, and a K1 chain at Dh
+   256;
 10. the stage-2 training step (train/train.py) at caco_base in bf16: B=16,
    500 patches from `device_train_frontend` on synthetic 3-10-s wavs, 100
    tokens; 5 steps on one batch with warmup 1: K4 and K7 launched 12 times
    per step and no K1, K2, K3 or K5; finite loss and grad_norm, the loss
-   falls from step 1 to step 4; peak device memory;
+   falls from step 1 to step 4; peak device memory; the device's busy
+   time per step (the union of its kernel intervals, torch.profiler);
 11. the fp32 10-s step (text dropout off): K4 12 per step and no K7; its
    loss and gradients at B=2 against the same fp32 step on the CPU through
    the plain versions; 3 timed steps;
@@ -77,7 +84,8 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    and 30-s products, F.scaled_dot_product_attention at S=496 and 1536, K4
    and K5, SDPA's backward alone for K7), K2's fp32 links and K4 in fp32
    against torch.matmul / SDPA in fp32, the LayerNorm link and K8's three
-   library calls; the fp32 10-s embed_audio rate.
+   library calls; the fp32 10-s embed_audio rate; the K5 call against its
+   kernel alone, and the host microseconds per K4 / K5 call.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
@@ -279,7 +287,8 @@ def check_sass():
         return None
     sass = subprocess.run([tool, "-sass", kern.load_library()._name], capture_output=True,
                           text=True, check=True).stdout
-    counts = {"gemm_bf16_wgmma_kernel": 0, "attention_bf16_wgmma_kernel": 0}
+    counts = {"gemm_bf16_wgmma_kernel": 0, "attention_bf16_wgmma_kernel": 0,
+              "attn_bwd_pre_wgmma": 0, "attn_bwd_main_wgmma": 0}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -505,8 +514,16 @@ def attention_phase():
         check(bool((got[6] == 0).all()), f"{label}: the all-masked clip is not exactly 0")
     q, mask = inputs(1500, D, torch.bfloat16)
     kv, _ = inputs(1500, 2 * D, torch.bfloat16)
-    errs["K5"] = compare("K5 bf16 S=1500 (padded to 1536)", ea.encoder_attention_blocked(q, kv, mask, H),
+    got = ea.encoder_attention_blocked(q, kv, mask, H)
+    errs["K5"] = compare("K5 bf16 S=1500 (plain: padded to 1536)", got,
                          ea.encoder_attention_blocked_plain(q, kv, mask, H), *TOL[torch.bfloat16]["kernel"])
+    pad = 1536 - 1500
+    padded = kern.attention_k5(F.pad(q, (0, 0, 0, pad)), F.pad(kv, (0, 0, 0, pad)), F.pad(mask, (0, pad)),
+                               H)[:, :1500]
+    same = torch.equal(got, padded)
+    print(f"  K5 at S=1500 (no padding copy) vs the kernel over the row padded to 1536: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    check(same, "K5 at the clip length differs from the padded call")
     cases = ((torch.bfloat16, 500, 8, False), (torch.bfloat16, 500, 8, True),
              (torch.float32, 100, 8, False), (torch.float32, 100, 12, True))
     for dt, s, heads, causal in cases:
@@ -519,6 +536,89 @@ def attention_phase():
         check(bool((got[6] == 0).all()), f"{label}: the all-masked clip's gradients are not 0")
     for key, err in head_dim_checks(gen).items():
         errs[key] = max(errs[key], err)
+    errs["K7"] = max(errs["K7"], k7_wgmma_checks(gen))
+    for key, err in wide_head_checks(gen).items():
+        errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+def clamp_qkv(b, s, heads, hd, gen):
+    """Fused QKV (CPU, fp32) whose logits reach far past the clamp of 80
+    while every element stays moderate: Q and K share the all-ones direction
+    of each head (30 along it), K with a per-key weight in [-1, 1.2], so
+    q·k/sqrt(Dh) runs from about -110 to +130 at Dh 64 and every row clamps
+    many keys.  (Scaling all of q, k, v by 8 instead puts one bf16 step of
+    dS times |q| ≈ 30 past K7's bound: a test of the inputs, not the kernel.)"""
+    d = heads * hd
+    x = 1.5 * torch.randn(b, s, 3 * d, generator=gen)
+    along = 30.0 / hd ** 0.5
+    x[..., :d] += along
+    x[..., d:2 * d] += along * (2.2 * torch.rand(b, s, 1, generator=gen) - 1.0)
+    return x
+
+
+def k7_wgmma_checks(gen):
+    """Phase 9: the redesigned bf16 K7 (wgmma: pre-pass, main pass, dQ
+    conversion) at Dh 64 (12 heads) and 96 (8 heads), S = 1, 63, 128, 500
+    and 579 (`bwd_fits_vmem`'s bf16 limit), causal and not, B=4 with an
+    all-masked clip (exactly 0), and logits far above the clamp (S=500)."""
+    b, err = 4, 0.0
+    tol = TOL[torch.bfloat16]["k7"]
+    for hd, heads in ((64, 12), (96, 8)):
+        for s in (1, 63, 128, 500, 579):
+            lens = [s, max(s // 3, 1), 0, max(s // 2, 1)]
+            mask = (torch.arange(s)[None, :] < torch.tensor(lens)[:, None]).to(DEVICE, torch.int32)
+            for causal, clamp in ((False, False), (True, False)) + (((False, True),) if s == 500 else ()):
+                qkv = (clamp_qkv(b, s, heads, hd, gen) if clamp else
+                       1.5 * torch.randn(b, s, 3 * heads * hd, generator=gen)).to(DEVICE, torch.bfloat16)
+                g = torch.randn(b, s, heads * hd, generator=gen).to(DEVICE, torch.bfloat16)
+                label = (f"K7 wgmma Dh={hd} S={s}{' causal' if causal else ''}"
+                         f"{' (logits above the clamp)' if clamp else ''}")
+                if clamp:
+                    q, k, _ = (kern.split_heads(t, heads).float() for t in qkv.chunk(3, dim=-1))
+                    top = torch.minimum((q * kern.q_scale(hd, torch.bfloat16)).to(torch.bfloat16).float()
+                                        @ k.transpose(-1, -2), kern._kbias(mask, s, False)).amax(dim=-1)
+                    check(bool((top[[0, 1, 3]] >= 80.0).all()), f"{label}: a row does not reach the clamp")
+                got = kern.attention_bwd(qkv, mask, g, heads, causal)
+                err = max(err, compare(label, got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), *tol))
+                check(bool((got[2] == 0).all()), f"{label}: the all-masked clip's gradients are not 0")
+    return err
+
+
+def wide_head_checks(gen):
+    """Phase 9: heads past 128 columns (run in pieces of 128), Dh 160, 192,
+    256 and 384 (2 heads, B=4, S=300, an all-masked clip) in bf16 and fp32:
+    the attention link, K4 causal, K5's strides, K7 causal and not; and a
+    K1 chain (`fused_layer`) at width 768 with 3 heads of Dh 256."""
+    b, s, heads = 4, 300, 2
+    mask = (torch.arange(s)[None, :] < torch.tensor([300, 123, 0, 17])[:, None]).to(DEVICE, torch.int32)
+    errs = {"K4": 0.0, "K5": 0.0, "K7": 0.0, "k1_wide_chain": 0.0}
+    for hd in (160, 192, 256, 384):
+        d = heads * hd
+        for dt in (torch.bfloat16, torch.float32):
+            qkv = (1.5 * torch.randn(b, s, 3 * d, generator=gen)).to(DEVICE, dt)
+            g = torch.randn(b, s, d, generator=gen).to(DEVICE, dt)
+            q, kv = qkv[..., :d].contiguous(), qkv[..., d:].contiguous()
+            name = f"Dh={hd} {_dt_name(dt)}"
+            for label, got, ref, tol, key in (
+                    ("attention link", kern.attention(qkv, mask, heads),
+                     kern.attention_plain(qkv, mask, heads), TOL[dt]["kernel"], "K4"),
+                    ("K4 causal", kern.attention_k4(qkv, mask, heads, True),
+                     kern.attention_plain(qkv, mask, heads, True), TOL[dt]["kernel"], "K4"),
+                    ("K5 strides", kern.attention_k5(q, kv, mask, heads),
+                     kern.attention_split_plain(q, kv, mask, heads), TOL[dt]["kernel"], "K5"),
+                    ("K7", kern.attention_bwd(qkv, mask, g, heads),
+                     kern.attention_bwd_plain(qkv, mask, g, heads), TOL[dt]["k7"], "K7"),
+                    ("K7 causal", kern.attention_bwd(qkv, mask, g, heads, True),
+                     kern.attention_bwd_plain(qkv, mask, g, heads, True), TOL[dt]["k7"], "K7")):
+                errs[key] = max(errs[key], compare(f"{label} {name}", got, ref, *tol))
+                check(bool((got[2] == 0).all()), f"{label} {name}: the all-masked clip is not 0")
+    blk = ViTBlock(D, INTER, torch.Generator().manual_seed(SEED + 9)).to(DEVICE)
+    for dt in (torch.bfloat16, torch.float32):
+        x, m = layer_inputs(b, s, D, dt, gen, [300, 123, 0, 17])
+        errs["k1_wide_chain"] = max(errs["k1_wide_chain"], compare(
+            f"K1 chain, 3 heads of Dh=256, {_dt_name(dt)}", ea.fused_layer(blk, x, m, 3, 1e-6),
+            ea.fused_layer_plain(blk, x, m, 3, 1e-6), *TOL[dt]["chain"]))
     return errs
 
 
@@ -604,6 +704,42 @@ NO_SERVING_KERNELS = {"k1_layer": 0, "k2_block": 0, "k3_block": 0, "k3_layer": 0
                       "log_mel_fast": 0}  # training runs none of the serving kernels
 
 
+def device_busy_ms(fn, n: int):
+    """fn run n times under torch.profiler (device activity only) →
+    (device busy ms per run: the union of the intervals of every kernel,
+    copy and memset on the card; host wall ms per run, profiler included;
+    device operations per run)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    check(busy > 0, "the profiler recorded no device time")
+    return busy / 1e3 / n, wall, len(spans) / n
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds per call of fn (the enqueue: argument checks,
+    tensor maps, the launch), the device left to catch up afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return t
+
+
 def time_steps(step, state, batch, gen, n: int):
     """n more steps, each timed on the host clock between synchronisations
     → (state, sorted ms)."""
@@ -651,9 +787,20 @@ def train_bf16_phase(cfg, rs):
     check(losses[4] < losses[1], "the loss did not fall from step 1 to step 4")
     state, ms = time_steps(step, state, batch, gen, 6)
     print(f"  step times {['%.2f' % v for v in ms]} ms, median {np.median(ms):.2f} ms/step")
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch, gen)
+        float(m["loss"])
+
+    busy, wall, ops = device_busy_ms(one_step, 3)
+    print(f"  device busy {busy:.2f} ms/step (union of device intervals, 3 steps under the "
+          f"profiler, {wall:.2f} ms wall/step there, idle share {1 - busy / wall:.3f}, "
+          f"{ops:.0f} device operations/step)")
     del state, model
     return got, {"loss": losses, "grad_norm": norms, "peak_gib": peak, "step_ms": ms,
-                 "median_step_ms": float(np.median(ms))}
+                 "median_step_ms": float(np.median(ms)), "device_busy_ms": busy,
+                 "profiled_wall_ms": wall, "device_ops_per_step": ops}
 
 
 def train_fp32_phase(cfg, rs):
@@ -964,6 +1111,16 @@ def timing_phase(blk, label):
     bounds["k5"] = bound({"bf16": attn_flops(h, hd, 1500, lens)}, 2 * TRAIN_BATCH_30 * 1500 * 4 * d)
     times["k5"] = paired_ms(lambda: ea.encoder_attention_blocked(q, kv, m4, h),
                             lambda: ea.encoder_attention_blocked_plain(q, kv, m4, h), 10)
+    # the K5 call against its kernel alone, and the host time per call
+    host = {"k5_kernel_ms": cuda_ms(lambda: kern.attention_k5(q, kv, m4, h), 10),
+            "k5_call_host_us": host_us(lambda: ea.encoder_attention_blocked(q, kv, m4, h)),
+            "k5_host_us": host_us(lambda: kern.attention_k5(q, kv, m4, h)),
+            "k4_host_us": host_us(lambda: kern.attention_k4(qkv, m16, h)),
+            "k4_kernel_ms": times["k4"][0]}
+    print(f"  K5 call (B=4, S=1500, no padding copy) {times['k5'][0]:.4f} ms, the kernel alone "
+          f"{host['k5_kernel_ms']:.4f} ms; host per call: K5 {host['k5_host_us']:.1f} us "
+          f"(encoder_attention_blocked {host['k5_call_host_us']:.1f} us), K4 {host['k4_host_us']:.1f} us "
+          f"against its kernel's {1e3 * times['k4'][0]:.1f} us ({label})")
     times["k6_attn"] = paired_ms(
         lambda: ea.fused_ln_attention(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6),
         lambda: ea.fused_ln_attention_plain(blk.ln1, blk.attn.qkv, x, mask, h, 1e-6), 10)
@@ -1002,7 +1159,7 @@ def timing_phase(blk, label):
     for k, (km, pm) in times.items():
         bms = f"  bound {bounds[k][0]:.4f} ms ({bounds[k][1]})" if k in bounds else ""
         print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms{bms}  ({label})")
-    return times, bounds
+    return times, bounds, host
 
 
 def sdpa_backend(q, k, v, am) -> str:
@@ -1296,13 +1453,18 @@ def run() -> dict:
     rates30 = clips_per_s(engine30, bench30)
     print(f"  embed_audio {rates30[0]:.1f} / {rates30[1]:.1f} clips/s (30-s clips, bf16, "
           f"batch {BATCH}, {len(bench30)} clips per run; {label})")
-    times, bounds = timing_phase(blk, label)
+    times, bounds, host = timing_phase(blk, label)
     times["k8"], bounds["k8"] = times["log_mel_1000"], bounds["log_mel_1000"]
     times["k8_fast"], bounds["k8_fast"] = times["log_mel_fast_1000"], bounds["log_mel_fast_1000"]
     links = links_phase(blk, label)
 
+    print(f"  K7 / SDPA backward alone (B=16, S=500): {links['k7']['ms']:.4f} / "
+          f"{links['k7']['library_ms']:.4f} ms = {links['k7']['ms'] / links['k7']['library_ms']:.2f}; "
+          f"the K5 call (B=4, S=1500) / SDPA at K5's shape: {times['k5'][0]:.4f} / "
+          f"{links['k5']['library_ms']:.4f} ms = {times['k5'][0] / links['k5']['library_ms']:.2f} ({label})")
     print(f"  bf16 10-s training step {train_bf16['median_step_ms']:.2f} ms/step (median of 6, "
-          f"B={TRAIN_BATCH}), peak {train_bf16['peak_gib']:.2f} GiB ({label})")
+          f"B={TRAIN_BATCH}), device busy {train_bf16['device_busy_ms']:.2f} ms/step, "
+          f"peak {train_bf16['peak_gib']:.2f} GiB ({label})")
     print(f"  fp32 10-s training step {np.median(train_fp32['step_ms']):.2f} ms/step (median of 3, "
           f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
           f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
@@ -1326,7 +1488,8 @@ def run() -> dict:
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
             "log_mel_fast_3000": {"ms": times["log_mel_fast_3000"][0],
                                   "plain_ms": times["log_mel_fast_3000"][1]},
-            "links": links, "hgmma": hgmma, "silu_epilogue_mismatches": silu_bad,
+            "links": links, "attention_host": host, "hgmma": hgmma,
+            "silu_epilogue_mismatches": silu_bad,
             "variant_paths": variants, "inference_grads": grads,
             "clips_per_s": {"10s_bf16": rates, "10s_fp32": rates32, "30s_bf16": rates30},
             "tiny_engine_cosine": tiny_cos,

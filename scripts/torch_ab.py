@@ -16,7 +16,11 @@ weights from seed 0 (batch 32, 10-s clips unless stated):
   torch.matmul and F.scaled_dot_product_attention on the same operands;
   K4 in fp32 (B=16, S=500);
 - the fp32 and bf16 10-s training steps (B=16, 500 patches, 100 tokens,
-  text dropout off; medians of 3 and 5 after 2 warm-up steps).
+  text dropout off; medians of 3 and 5 after 2 warm-up steps), and the
+  bf16 step's device busy time (the union of the card's kernel, copy and
+  memset intervals under torch.profiler, over 3 steps);
+- K7 (bf16, B=16, S=500) against SDPA's backward alone on the same inputs,
+  and the K5 call (`encoder_attention_blocked`, bf16, B=4, S=1500).
 Prints the card's name and power limit, then one JSON line per tree
 ("ab {...}").  Needs a CUDA card; imports no JAX.
 """
@@ -43,6 +47,26 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_busy_ms(torch, fn, n: int):
+    """fn run n times under torch.profiler → (device busy ms per run, the
+    union of the card's intervals; host wall ms per run under the profiler)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / n, wall
 
 
 def measure(tree: str) -> dict:
@@ -94,6 +118,24 @@ def measure(tree: str) -> dict:
         del engine
 
     gen = torch.Generator().manual_seed(SEED + 1)
+    qkv = (1.5 * torch.randn(16, 500, 3 * D, generator=gen)).to(dev, torch.bfloat16)
+    m16 = (torch.arange(500)[None, :] < torch.tensor(rs.randint(100, 501, size=16))[:, None]).to(
+        dev, torch.int32)
+    g = torch.randn(16, 500, D, generator=gen).to(dev, torch.bfloat16)
+    qh, kh, vh = (kern.split_heads(t, H).contiguous().requires_grad_() for t in qkv.chunk(3, dim=-1))
+    with torch.enable_grad():
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=(m16 > 0)[:, None, None, :])
+        gh = kern.split_heads(g, H).contiguous()
+        out["k7_ms"] = cuda_ms(torch, lambda: kern.attention_bwd(qkv, m16, g, H), 10)
+        out["sdpa_bwd_ms"] = cuda_ms(
+            torch, lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True), 10)
+    del sdpa
+    q4 = torch.randn(4, 1500, D, generator=gen).to(dev, torch.bfloat16)
+    kv4 = torch.randn(4, 1500, 2 * D, generator=gen).to(dev, torch.bfloat16)
+    m4 = (torch.arange(1500)[None, :] < torch.tensor(rs.randint(150, 1501, size=4))[:, None]).to(
+        dev, torch.int32)
+    with torch.inference_mode():
+        out["k5_call_ms"] = cuda_ms(torch, lambda: ea.encoder_attention_blocked(q4, kv4, m4, H), 10)
     with torch.inference_mode():
         blk = ViTBlock(D, 4 * D, torch.Generator().manual_seed(SEED)).to(dev)
         lens = np.random.RandomState(SEED).randint(49, 497, size=BATCH)
@@ -151,6 +193,13 @@ def measure(tree: str) -> dict:
             if i >= 2:
                 ms.append((time.perf_counter() - t) * 1e3)
         out[f"train_{key}_10s_ms"] = sorted(ms)
+        if key == "bf16":
+            def one_step():
+                nonlocal state
+                state, metrics = step(state, batch, None)
+                float(metrics["loss"])
+            out["train_bf16_10s_device_busy_ms"], out["train_bf16_10s_profiled_wall_ms"] = \
+                device_busy_ms(torch, one_step, 3)
         del state, net, step
         torch.cuda.empty_cache()
     return out

@@ -9,7 +9,11 @@ and the Hopper bf16 attention forward (Dh 96 and causal Dh 64 at S = 1 …
 register-tiled fp32 attention (Dh 16 … 128, S = 1 … 1536, causal and not),
 the SIMT GEMM in fp32 and bf16 at ragged M, N, K (N, K not multiples of 8)
 with every epilogue, the bf16 attention and K7 at head dims other than 64
-and 96, and the caco_tiny bf16 engine (K1 at Dh 16) against the CPU engine.
+and 96, and the caco_tiny bf16 engine (K1 at Dh 16) against the CPU engine;
+the wgmma K7 (bf16, Dh 64 and 96, S = 1 … 579, causal and not, logits
+above the clamp), heads past 128 columns (Dh 160 … 384: the attention
+link, K4, K5, K7 and a K1 chain at Dh 256), and K5 at the clip length
+against the padded call, bit for bit.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -97,16 +101,16 @@ def test_chain_matches_plain(cuda, dtype, b, s, lengths):
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
-    """A head dim above 128 (bf16 and fp32, forward and K7), a mask that
-    is not int32, a bias of the wrong width, a half tensor, mixed devices."""
+    """A mask that is not int32, a bias of the wrong width, a half tensor,
+    mixed devices; a head dim of 192 (past 128) runs, forward and K7."""
     qkv = torch.randn(4, 64, 3 * 192, device=cuda, dtype=torch.bfloat16)
     mask = torch.ones(4, 64, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head dim 192"):
-        kern.attention(qkv, mask, 1)  # bf16 Dh = 192
-    with pytest.raises(ValueError, match="head dim 192"):
-        kern.attention_k4(qkv.float(), mask, 1)
-    with pytest.raises(ValueError, match="head dim 192"):
-        kern.attention_bwd(qkv, mask, qkv[..., :192].contiguous(), 1)
+    g = qkv[..., :192].contiguous()
+    _check(kern.attention(qkv, mask, 1), kern.attention_plain(qkv, mask, 1), TOL_K45["bfloat16"])
+    _check(kern.attention_k4(qkv.float(), mask, 1), kern.attention_plain(qkv.float(), mask, 1),
+           TOL_K45["float32"])
+    _check(kern.attention_bwd(qkv, mask, g, 1), kern.attention_bwd_plain(qkv, mask, g, 1),
+           TOL_K7["bfloat16"])
     with pytest.raises(ValueError, match="mask"):
         kern.attention(qkv, mask.long(), 2)
     w = torch.randn(576, 12, device=cuda, dtype=torch.bfloat16)
@@ -585,3 +589,116 @@ def test_tiny_bf16_engine_on_the_card_matches_the_cpu(cuda):
     cos = (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
     assert a.shape == (5, cfg.projection_size) and np.isfinite(a).all()
     assert cos.min() >= 0.999, cos
+
+
+# ---- the wgmma K7, heads past 128 columns, K5 without its padding ----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd,heads", [(64, 12), (96, 8)])
+@pytest.mark.parametrize("s", [1, 63, 128, 500, 579])
+def test_k7_wgmma_matches_plain(cuda, hd, heads, s, causal):
+    """The redesigned bf16 K7 (pre-pass, main pass with dQ by fp32 atomics,
+    conversion: three launches, one k7 count) at ragged lengths up to
+    `bwd_fits_vmem`'s bf16 limit (579), padded keys, and an all-masked clip
+    whose gradients are exactly 0."""
+    qkv, mask, gen = _qkv(3, s, heads * hd, [s, max(s // 3, 1), 0], torch.bfloat16, 40)
+    g = torch.randn(3, s, heads * hd, generator=gen).bfloat16()
+    kern.reset_launches()
+    got = kern.attention_bwd(qkv.to(cuda), mask.to(cuda), g.to(cuda), heads, causal)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k7"] == 1
+    _check(got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), TOL_K7["bfloat16"])
+    assert (got[2] == 0).all()
+
+
+def clamp_qkv(b, s, heads, hd, gen):
+    """Fused QKV whose logits reach far past the clamp of 80 while every
+    element stays moderate: Q and K share the direction of all-ones in each
+    head (30 along it), K with a per-key weight in [-1, 1.2], so q·k/sqrt(Dh)
+    runs from about -110 to +130 (Dh 64) and every row clamps many keys.
+    (Scaling all of q, k, v by 8 instead puts one bf16 step of dS times
+    |q| ≈ 30 past K7's bound: a test of the inputs, not the kernel.)"""
+    d = heads * hd
+    x = 1.5 * torch.randn(b, s, 3 * d, generator=gen)
+    along = 30.0 / hd ** 0.5
+    x[..., :d] += along
+    x[..., d:2 * d] += along * (2.2 * torch.rand(b, s, 1, generator=gen) - 1.0)
+    return x.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,heads", [(64, 12), (96, 8)])
+def test_k7_wgmma_clamp_matches_plain(cuda, hd, heads):
+    """Logits far above the clamp of 80 (many keys share p = 1 / count) and
+    far below it, in every row."""
+    gen = torch.Generator().manual_seed(41)
+    qkv = clamp_qkv(2, 500, heads, hd, gen)
+    mask = (torch.arange(500)[None, :] < torch.tensor([500, 250])[:, None]).to(torch.int32)
+    g = torch.randn(2, 500, heads * hd, generator=gen).bfloat16()
+    q, k, _ = (kern.split_heads(t, heads).float() for t in qkv.chunk(3, dim=-1))
+    top = torch.minimum((q * kern.q_scale(hd, torch.bfloat16)).bfloat16().float() @ k.transpose(-1, -2),
+                        kern._kbias(mask, 500, False)).amax(dim=-1)
+    assert bool((top >= 80.0).all())
+    got = kern.attention_bwd(qkv.to(cuda), mask.to(cuda), g.to(cuda), heads)
+    _check(got, kern.attention_bwd_plain(qkv, mask, g, heads), TOL_K7["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,heads", [(160, 2), (192, 4), (256, 3), (384, 2)])
+def test_wide_heads_match_plain(cuda, dtype, hd, heads):
+    """Heads past 128 columns, run in pieces of 128: the chain link, K4
+    causal, K5's strides and K7 (causal and not); the all-masked clip
+    gives exactly 0."""
+    td = getattr(torch, dtype)
+    d = heads * hd
+    qkv, mask, gen = _qkv(3, 200, d, [200, 77, 0], td, 42)
+    g = torch.randn(3, 200, d, generator=gen).to(td)
+    qkv, mask, g = qkv.to(cuda), mask.to(cuda), g.to(cuda)
+    got = kern.attention(qkv, mask, heads)
+    _check(got, kern.attention_plain(qkv, mask, heads), TOL_K45[dtype])
+    assert (got[2] == 0).all()
+    _check(kern.attention_k4(qkv, mask, heads, True), kern.attention_plain(qkv, mask, heads, True),
+           TOL_K45[dtype])
+    q, kv = qkv[..., :d].contiguous(), qkv[..., d:].contiguous()
+    _check(kern.attention_k5(q, kv, mask, heads), kern.attention_split_plain(q, kv, mask, heads),
+           TOL_K45[dtype])
+    for causal in (False, True):
+        got = kern.attention_bwd(qkv, mask, g, heads, causal)
+        _check(got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), TOL_K7[dtype])
+        assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_chain_at_a_wide_head_matches_plain(cuda, dtype):
+    """`fused_layer` at width 768 with 3 heads of Dh 256."""
+    td = getattr(torch, dtype)
+    blk, x, mask = _layer(768, 3072, 3, 130, [130, 41, 0], td, 43)
+    with torch.inference_mode():
+        plain = ea.fused_layer_plain(blk, x, mask, 3, 1e-6)
+        got = ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 3, 1e-6)
+    _check(got, plain, TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_k5_at_the_clip_length_equals_the_padded_call(cuda):
+    """`encoder_attention_blocked` at S = 1500 runs K5 at 1500 with no
+    padding copy; its output equals the kernel over Q, K|V and the mask
+    padded to 1536 (the key tiles, their order and the skipped tiles are
+    the same), bit for bit."""
+    gen = torch.Generator().manual_seed(44)
+    s = 1500
+    q = (1.5 * torch.randn(3, s, 768, generator=gen)).bfloat16().to(cuda)
+    kv = (1.5 * torch.randn(3, s, 1536, generator=gen)).bfloat16().to(cuda)
+    mask = (torch.arange(s)[None, :] < torch.tensor([s, 1000, 0])[:, None]).to(cuda, torch.int32)
+    kern.reset_launches()
+    got = ea.encoder_attention_blocked(q, kv, mask, 8)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k5"] == 1
+    pad = 1536 - s
+    padded = kern.attention_k5(torch.nn.functional.pad(q, (0, 0, 0, pad)),
+                               torch.nn.functional.pad(kv, (0, 0, 0, pad)),
+                               torch.nn.functional.pad(mask, (0, pad)), 8)[:, :s]
+    assert torch.equal(got, padded)

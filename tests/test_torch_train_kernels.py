@@ -69,6 +69,33 @@ def test_k4_plain_matches_pallas_forward(dtype, causal):
 
 
 @pytest.mark.parametrize("dtype,s", [("float32", 1400), ("bfloat16", 1700)])
+def test_k5_unpadded_matches_the_padded_plain_version(dtype, s):
+    """`encoder_attention_blocked` runs K5 at the clip length (no padding
+    copies); the plain version pads to the plan's length as
+    `_pallas_forward_blocked` does.  The padded keys add exact zeros, but a
+    CPU BLAS may sum the longer key axis in another order: fp32 within
+    1e-6, bf16 within one bf16 step (the card holds the kernel to bit
+    equality, tests/test_torch_cuda.py)."""
+    d, h = 32, 2
+    td = DTYPES[dtype][1]
+    plan = tea.kernel_plan(s, d, td)
+    assert plan[0] == "blocked" and s % plan[2] != 0
+    rs = np.random.RandomState(6)
+    q = torch.from_numpy(rs.randn(2, s, d).astype(np.float32)).to(td)
+    kv = torch.from_numpy(rs.randn(2, s, 2 * d).astype(np.float32)).to(td)
+    mask = torch.from_numpy(_mask([s, 700], s))
+    got = tea.encoder_attention_blocked(q, kv, mask, h)
+    ref = tea.encoder_attention_blocked_plain(q, kv, mask, h)
+    assert got.shape == ref.shape == (2, s, d) and got.dtype == td
+    got, ref = got.float().numpy(), ref.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (np.abs(got - ref) <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype,s", [("float32", 1400), ("bfloat16", 1700)])
 def test_k5_plain_matches_pallas_forward_blocked(dtype, s):
     """S not a multiple of the q-block: the plan pads (1400 → 1536 in fp32,
     1700 → 2048 in bf16, q-blocks of 512) and slices the padded rows away."""
@@ -107,10 +134,11 @@ def test_k7_plain_matches_pallas_backward(dtype, causal):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd,heads", [(128, 1), (20, 3)])
+@pytest.mark.parametrize("hd,heads", [(128, 1), (20, 3), (192, 1), (256, 2)])
 def test_k4_k7_plain_match_pallas_at_other_head_dims(dtype, hd, heads):
-    """The head dims the port's kernels now take beyond 64 and 96: the
-    widest (128) and one that is not a multiple of 8 (20), causal, against
+    """The head dims the port's kernels take beyond 64 and 96: 128, one
+    that is not a multiple of 8 (20), and heads past 128 columns (192, 256:
+    the kernels run them in pieces of 128), causal, against
     `_pallas_forward` and `_pallas_backward`."""
     rs = np.random.RandomState(4)
     d = hd * heads
