@@ -9,7 +9,9 @@ and writes only the (B, F, num_mels) log-mel.
 
 - K8 (fast_dft=False): both products full fp32.  Its output equals the
   unfused chain (frontend/dsp.py) up to the order of fp32 sums, so
-  choosing it changes no result.
+  choosing it changes no result.  It computes only what the log-mel
+  needs (`mel_bin_tables`): the DFT over the bins whose mel row has a
+  nonzero, the mel product over each channel's run of nonzero bins.
 - K8′ (fast_dft=True, JAX's `_kernel:135-141`): the DFT as three bf16
   products with fp32 accumulation — audio and matrix each split into a
   bf16 pair hi + lo, the sum hi·hi + hi·lo + lo·hi, lo·lo dropped (about
@@ -64,6 +66,49 @@ def _device_matrices(front: FrontendConfig, device: torch.device):
     host memory waits for the device, so it stays out of the per-bucket path)."""
     c, mel, _ = _padded_matrices(front)
     return torch.from_numpy(c).to(device), torch.from_numpy(mel).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_bin_tables(front: FrontendConfig):
+    """What the log-mel needs of the spectrogram, from the padded mel
+    matrix → (k_lo, k_hi, runs, weights):
+    - [k_lo, k_hi): the bins whose mel row has a nonzero (1–255 at the
+      default frontend: the DC row is zeroed and the top edge is Nyquist);
+      every other bin adds exactly 0 to every mel sum;
+    - runs (num_mels, 2) int32: channel m's first and last bin with a
+      nonzero weight ([0, -1] for a channel with none);
+    - weights (num_mels, W) fp32: channel m's weights over its run in bin
+      order (interior zeros included), zero past it; W the longest run.
+    Summing a channel over its run in ascending bin order with fmaf gives
+    the dense ascending sum bit for bit: every term left out is mag·0."""
+    mel = _padded_matrices(front)[1]
+    nz = mel != 0
+    bins = np.flatnonzero(nz.any(axis=1))
+    k_lo, k_hi = (int(bins[0]), int(bins[-1]) + 1) if bins.size else (0, 0)
+    runs = np.tile(np.array([0, -1], np.int32), (mel.shape[1], 1))
+    for m in range(mel.shape[1]):
+        ks = np.flatnonzero(nz[:, m])
+        if ks.size:
+            runs[m] = ks[0], ks[-1]
+    weights = np.zeros((mel.shape[1], max(1, int((runs[:, 1] - runs[:, 0] + 1).max()))), np.float32)
+    for m, (lo, hi) in enumerate(runs):
+        weights[m, :hi - lo + 1] = mel[lo:hi + 1, m]
+    return k_lo, k_hi, runs, weights
+
+
+@functools.lru_cache(maxsize=8)
+def _device_mel_tables(front: FrontendConfig, device: torch.device):
+    """`mel_bin_tables`' runs and weights on `device`, copied once."""
+    _, _, runs, weights = mel_bin_tables(front)
+    return torch.from_numpy(runs).to(device), torch.from_numpy(weights).to(device)
+
+
+def spectrum_work(front: FrontendConfig) -> tuple:
+    """(DFT columns, mel terms) per frame that the log-mel needs: 2 columns
+    (re, im) for each bin with a nonzero mel row, one term per nonzero of
+    the mel matrix.  The kernels' bounds count these."""
+    nz = _padded_matrices(front)[1] != 0
+    return 2 * int(nz.any(axis=1).sum()), int(nz.sum())
 
 
 @functools.lru_cache(maxsize=8)
@@ -146,21 +191,24 @@ def fused_log_mel(audio_rows: torch.Tensor, front: FrontendConfig,
     kern._need(b > 0 and num_frames > 0 and rows >= audio_rows_for(num_frames, front),
                f"{rows} rows for {num_frames} frames")
     kern._need(front.num_mels == 128, f"num_mels {front.num_mels} (the kernel takes 128)")
-    c, mel = _device_matrices(front, audio_rows.device)
+    kern._need(hop % (8 if fast_dft else 4) == 0,
+               f"hop {hop} (K8 takes a multiple of 4, K8′ of 8)")
+    kern._need(audio_rows.data_ptr() % 16 == 0, "rows must start 16-byte aligned")
     nbp = _padded_matrices(front)[2]
+    k_lo, k_hi, _, weights = mel_bin_tables(front)
+    runs, w = _device_mel_tables(front, audio_rows.device)
     out = torch.empty(b, num_frames, front.num_mels, dtype=torch.float32,
                       device=audio_rows.device)
-    shape = (b, rows, hop, front.window_length, num_frames, nbp, front.num_spectrogram_bins,
-             front.num_mels, float(front.log_offset), float(front.log_scale),
-             float(front.log_bias))
+    tables = (runs.data_ptr(), w.data_ptr(), weights.shape[1], out.data_ptr(), b, rows, hop,
+              front.window_length, num_frames, nbp, k_lo, k_hi, front.num_mels,
+              float(front.log_offset), float(front.log_scale), float(front.log_bias))
     if fast_dft:
-        kern._need(hop % 8 == 0, f"hop {hop} (K8′ takes a multiple of 8)")
         c_hi, c_lo = _device_split_matrices(front, audio_rows.device)
         kern._launch("log_mel_fast", audio_rows.device, audio_rows.data_ptr(), c_hi.data_ptr(),
-                     c_lo.data_ptr(), mel.data_ptr(), out.data_ptr(), *shape)
+                     c_lo.data_ptr(), *tables)
     else:
-        kern._launch("log_mel", audio_rows.device, audio_rows.data_ptr(), c.data_ptr(),
-                     mel.data_ptr(), out.data_ptr(), *shape)
+        c = _device_matrices(front, audio_rows.device)[0]
+        kern._launch("log_mel", audio_rows.device, audio_rows.data_ptr(), c.data_ptr(), *tables)
     return out
 
 

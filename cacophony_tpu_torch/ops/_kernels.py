@@ -142,8 +142,8 @@ def load_library() -> ctypes.CDLL:
     lib.k1_gemm.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
     lib.caco_attention.argtypes = [i, p, p, p, i, i, p, p, i, i, i, i, f, i, p]
     lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
-    lib.k8_log_mel.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
-    lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, p]
+    lib.k8_log_mel.argtypes = [p, p, p, p, i, p, *[i] * 9, f, f, f, p]
+    lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, p, *[i] * 9, f, f, f, p]
     lib.k1_silu_sweep.argtypes = [p, p]
     lib.k1_silu_sweep.restype = ctypes.c_int
     for sym in set(_SYMBOLS.values()):

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    kernels from cacophony_tpu_torch/csrc (one nvcc per source, in parallel);
    where the toolkit has cuobjdump, count the HGMMA (wgmma) instructions of
    the bf16 GEMM, the attention forward and K7's pre-pass and main pass in
-   the built library (none fails);
+   the built library (none fails), and check with `cuobjdump -res-usage`
+   that the kernels redesigned last (K8, K8′) use no local memory;
    sweep the bf16 GEMM's branch-free silu epilogue against apply_epilogue
    over every fp32 input (any differing bit fails);
 2. hold each K1 kernel, and the K1 layer chain as a whole, against its
@@ -24,8 +25,10 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    (`fused_layer` with the blocked variant: the whole layer at S=1496
    padded to 1536 inside) against the plain chain, bf16, B=8;
 4. K8 and K8′ (the fused log-mel, fp32 and bf16×3 DFT) against their plain
-   versions, and K8′ against K8 within 2e-4: B=8, 1000 and 3000 frames,
-   with a quiet and a silent clip;
+   versions, and K8′ against K8 within 2e-4: B=9, 1000 and 3000 frames,
+   with a quiet and a silent clip and a DC offset plus a Nyquist tone over
+   noise (most of its energy in the two bins K8 skips); K8 at mel_fmax =
+   7600;
 5. caco_base() with random weights from seed 0, a bf16 10-s CacoEngine on
    cuda: embed_audio on 70 clips of 3-10 s (the last bucket is mostly
    padding), embed_texts, score; K1 launched 12 times per bucket;
@@ -83,9 +86,16 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    attention against one PyTorch call in turns (torch.matmul at the 10-s
    and 30-s products, F.scaled_dot_product_attention at S=496 and 1536, K4
    and K5, SDPA's backward alone for K7), K2's fp32 links and K4 in fp32
-   against torch.matmul / SDPA in fp32, the LayerNorm link and K8's three
-   library calls; the fp32 10-s embed_audio rate; the K5 call against its
-   kernel alone, and the host microseconds per K4 / K5 call.
+   against torch.matmul / SDPA in fp32, K8's three library calls; the
+   LayerNorm link's device time (CUDA events around a CUDA graph of 42
+   calls, inputs rotated over >= 150 MB, bf16 and fp32) against
+   F.layer_norm's, each
+   with its share of the bound and rule 2's reading; K8 and K8′ with their
+   shares of the bound counted over the work the log-mel needs (the bins
+   with a nonzero mel row, the mel nonzeros); the fp32 10-s embed_audio
+   rate and the bf16 one with fused_frontend=True beside the default; the
+   K5 call against its kernel alone, and the host microseconds per K4 / K5
+   call.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
@@ -277,16 +287,24 @@ def attn_flops(heads, hd, s, valid, products=2):
     return products * 2 * heads * hd * s * int(sum(valid))
 
 
-def check_sass():
-    """Phase 1: the redesigned kernels issue wgmma (HGMMA in the SASS of the
-    built library), where the toolkit has cuobjdump."""
+def cuobjdump(flag: str):
+    """`cuobjdump <flag>` of the built kernel library, or None where the
+    toolkit has no cuobjdump."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
     if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, flag, kern.load_library()._name], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def check_sass():
+    """Phase 1: the redesigned kernels issue wgmma (HGMMA in the SASS of the
+    built library), where the toolkit has cuobjdump."""
+    sass = cuobjdump("-sass")
+    if sass is None:
         print("  HGMMA in the new kernels: not checked (no cuobjdump)")
         return None
-    sass = subprocess.run([tool, "-sass", kern.load_library()._name], capture_output=True,
-                          text=True, check=True).stdout
     counts = {"gemm_bf16_wgmma_kernel": 0, "attention_bf16_wgmma_kernel": 0,
               "attn_bwd_pre_wgmma": 0, "attn_bwd_main_wgmma": 0}
     current = None
@@ -298,6 +316,33 @@ def check_sass():
     print(f"  HGMMA instructions in the SASS (all instantiations): {counts}")
     check(all(counts.values()), f"a redesigned kernel issues no wgmma: {counts}")
     return counts
+
+
+REDESIGNED = ("log_mel_kernel", "log_mel_fast_kernel")  # redesigned in this slice: no local memory
+
+
+def check_local_memory():
+    """Phase 1: the redesigned kernels keep everything in registers and
+    shared memory: `cuobjdump -res-usage` reports LOCAL:0 and STACK:0 for
+    every instantiation, where the toolkit has cuobjdump."""
+    usage = cuobjdump("-res-usage")
+    if usage is None:
+        print("  local memory of the redesigned kernels: not checked (no cuobjdump)")
+        return None
+    found, current = {}, None
+    for line in usage.splitlines():
+        if "Function" in line:
+            current = next((k for k in REDESIGNED if k in line), None)
+        elif current and "LOCAL:" in line:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            found.setdefault(current, []).append(
+                {k: int(fields[k]) for k in ("REG", "STACK", "LOCAL", "SHARED") if k in fields})
+            current = None
+    print(f"  resource usage of the redesigned kernels (cuobjdump -res-usage): {found}")
+    check(set(found) == set(REDESIGNED), f"cuobjdump listed {sorted(found)}, expected {REDESIGNED}")
+    check(all(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0 for us in found.values() for u in us),
+          f"a redesigned kernel uses local memory: {found}")
+    return found
 
 
 def compare(name, got, ref, atol, rtol):
@@ -448,21 +493,31 @@ def variant_phase(blk):
 @torch.inference_mode()
 def log_mel_phase():
     """Phase 4: K8 and K8′ against their plain versions, and K8′ against
-    K8, B=8, 10-s and 30-s buffers."""
+    K8, B=9, 10-s and 30-s buffers (noise, a quiet and a silent clip, and a
+    DC offset plus a Nyquist tone over noise: most of its energy in the two
+    bins K8 skips); K8 again at mel_fmax = 7600 (bins 1–243)."""
     front = configs.FrontendConfig()
     gen = torch.Generator().manual_seed(SEED + 3)
     err = err_fast = 0.0
     for seconds in (10, 30):
         frames = seconds * 100
         lens = [seconds * 16000, 3 * 16000, 12345, seconds * 16000, 16000, 0, 160, 7 * 16000]
-        bufs = torch.zeros(len(lens), seconds * 16000)
+        bufs = torch.zeros(len(lens) + 1, seconds * 16000)
         for i, n in enumerate(lens):
             bufs[i, :n] = (1e-4 if i == 3 else 0.1) * torch.randn(n, generator=gen)
+        # 0.1 each over noise at 0.1: a louder tone over less noise leaves
+        # bins whose sums cancel, where two fp32 orders differ past 1e-4
+        bufs[-1] = (0.1 + 0.1 * (1 - 2 * (torch.arange(seconds * 16000) % 2))
+                    + 0.1 * torch.randn(seconds * 16000, generator=gen))
         rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
-        print(f"phase 4: K8 and K8′ vs plain, B={len(lens)}, {frames} frames")
+        print(f"phase 4: K8 and K8′ vs plain, B={len(bufs)}, {frames} frames")
         exact = fused.fused_log_mel(rows, front, frames)
         err = max(err, compare(f"K8 log-mel, {frames} frames", exact,
                                fused.fused_log_mel_plain(rows, front, frames), *TOL["log_mel"]))
+        if seconds == 10:
+            f76 = configs.FrontendConfig(mel_fmax=7600.0)
+            err = max(err, compare("K8 log-mel, mel_fmax 7600", fused.fused_log_mel(rows, f76, frames),
+                                   fused.fused_log_mel_plain(rows, f76, frames), *TOL["log_mel"]))
         fast = fused.fused_log_mel(rows, front, frames, fast_dft=True)
         plain_fast = fused.fused_log_mel_plain(rows, front, frames, fast_dft=True)
         err_fast = max(err_fast, compare(f"K8′ log-mel, {frames} frames", fast, plain_fast,
@@ -1135,11 +1190,8 @@ def timing_phase(blk, label):
     for frames in (1000, 3000):
         bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
         rows = fused.buffer_to_rows(bufs.to(DEVICE), frames, front)
-        bins = front.fft_size // 2 + 1
-        dft, mel = 2 * b * frames * front.window_length * 2 * bins, 2 * b * frames * bins * front.num_mels
-        nbytes = 4 * (rows.numel() + b * frames * front.num_mels)
-        bounds[f"log_mel_{frames}"] = bound({"fp32": dft + mel}, nbytes)
-        bounds[f"log_mel_fast_{frames}"] = bound({"bf16": 3 * dft, "fp32": mel}, nbytes)
+        bounds[f"log_mel_{frames}"] = log_mel_bound(front, b, frames, False)
+        bounds[f"log_mel_fast_{frames}"] = log_mel_bound(front, b, frames, True)
         times[f"log_mel_{frames}"] = paired_ms(lambda: fused.fused_log_mel(rows, front, frames),
                                                lambda: fused.fused_log_mel_plain(rows, front, frames),
                                                10)
@@ -1170,6 +1222,74 @@ def sdpa_backend(q, k, v, am) -> str:
     names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     picked = [n for n in names if any(w in n.lower() for w in ("sdpa", "fmha", "flash", "attention", "attn"))]
     return "; ".join(n[:90] for n in (picked or names))
+
+
+def graph_device_ms(fn, inputs, n: int = 42) -> float:
+    """Device ms per call of fn(x), x rotating over `inputs` (together
+    larger than the 50-MB L2): CUDA events around one replay of a CUDA
+    graph of n calls, so the host's enqueue, which outlasts a call's kernel
+    when events bracket back-to-back calls, is not in it.  (torch.profiler
+    recorded 39 of 42 such kernels in one run of this script and none in
+    another, after the profiler sessions of earlier phases.)"""
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def layer_norm_device_times(gen, out, label):
+    """The LayerNorm link's device time against F.layer_norm's (its weights
+    cast once, outside the timed call), B=32, S=496, D=768, bf16 (the K1,
+    K3, K3′ and K6 chains) and fp32 (K2), inputs rotated over >= 150 MB;
+    each beside its bound (one read and one write of the rows).  Prints
+    rule 2's reading: a kernel under half of its bound is a candidate for
+    a redesign.  The launch count shows the graph ran the kernel."""
+    rows, d = BATCH * 496, D
+    sc = (1.0 + 0.1 * torch.randn(d, generator=gen)).to(DEVICE)
+    sh = (0.1 * torch.randn(d, generator=gen)).to(DEVICE)
+    for dt, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+        n_buf = -(-150_000_000 // (rows * d * size))
+        xs = [torch.randn(BATCH, 496, d, generator=gen).to(DEVICE, dt) for _ in range(n_buf)]
+        sc_t, sh_t = sc.to(dt), sh.to(dt)
+        kern.reset_launches()
+        km = graph_device_ms(lambda x: kern.layer_norm(x, sc, sh, 1e-6), xs)
+        check(kern.LAUNCHES["layer_norm"] == len(xs) + 42,
+              f"layer_norm launched {kern.LAUNCHES['layer_norm']} times for the graph")
+        lm = graph_device_ms(lambda x: F.layer_norm(x, (d,), sc_t, sh_t, 1e-6), xs)
+        b_ms, by = bound({}, 2 * size * rows * d)
+        key = "layer_norm" if dt == torch.bfloat16 else "layer_norm_fp32"
+        out[key] = {"what": f"LayerNorm link ({_dt_name(dt)}, B=32, S=496), device time",
+                    "ms": km, "library_ms": lm, "bound_ms": b_ms, "bound_by": by,
+                    "share_of_bound": b_ms / km, "library_share_of_bound": b_ms / lm,
+                    "inputs_mb": n_buf * rows * d * size / 1e6}
+        verdict = ("under half of its bound: a candidate for rule 2" if b_ms / km < 0.5
+                   else "at half of its bound or better: rule 2 leaves it")
+        print(f"  {out[key]['what']:<44} kernel {km:.4f} ms ({b_ms / km:.2f} of its bound "
+              f"{b_ms:.4f} ms)  F.layer_norm {lm:.4f} ms ({b_ms / lm:.2f}), inputs rotated over "
+              f"{n_buf} buffers, {out[key]['inputs_mb']:.0f} MB; {verdict} ({label})")
+        del xs
+
+
+def log_mel_bound(front, b, frames, fast):
+    """K8's (or K8′'s) bound at (b, frames): the DFT over the bins whose mel
+    row has a nonzero (2 columns each) and the mel product over the mel
+    matrix's nonzeros, fp32 (K8′: the DFT as 3 bf16 products); bytes: the
+    audio rows read once, the log-mel written once."""
+    cols, terms = fused.spectrum_work(front)
+    dft, mel = 2 * b * frames * front.window_length * cols, 2 * b * frames * terms
+    nbytes = 4 * (b * fused.audio_rows_for(frames, front) * front.hop_length + b * frames * front.num_mels)
+    return bound({"bf16": 3 * dft, "fp32": mel} if fast else {"fp32": dft + mel}, nbytes)
 
 
 def links_phase(blk, label):
@@ -1271,14 +1391,19 @@ def links_phase(blk, label):
                            lambda: kern.attention(x, mask, h), 5)
         report("attention_fp32", "K2 link: fp32 attention (B=32, S=496)", km, lm,
                {"fp32": attn_flops(h, hd, 496, lens)}, 4 * BATCH * 496 * 4 * d)
-        xb = torch.randn(BATCH, 496, d, generator=gen).to(DEVICE, torch.bfloat16)
-        sc, sh = torch.ones(d, device=DEVICE), torch.zeros(d, device=DEVICE)
-        lm, km = paired_ms(lambda: F.layer_norm(xb, (d,), sc.bfloat16(), sh.bfloat16(), 1e-6),
-                           lambda: kern.layer_norm(xb, sc, sh, 1e-6), 10)
-        report("layer_norm", "LayerNorm link (bf16, B=32, S=496)", km, lm, {}, 2 * 2 * BATCH * 496 * d)
+        layer_norm_device_times(gen, out, label)
 
         front = configs.FrontendConfig()
         frames, bins = 1000, front.fft_size // 2 + 1
+        rows = fused.buffer_to_rows((0.1 * torch.randn(BATCH, frames * 160, generator=gen)).to(DEVICE),
+                                    frames, front)
+        for key, fast in (("k8", False), ("k8_fast", True)):
+            km = cuda_ms(lambda: fused.fused_log_mel(rows, front, frames, fast_dft=fast), 10)
+            b_ms, by = log_mel_bound(front, BATCH, frames, fast)
+            out[key] = {"what": f"K8{'′' if fast else ''} (B=32, 1000 frames)", "ms": km,
+                        "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / km}
+            print(f"  {out[key]['what']:<44} kernel {km:.4f} ms ({b_ms / km:.2f} of its bound "
+                  f"{b_ms:.4f} ms: the bins with a nonzero mel row, the mel nonzeros) ({label})")
         bufs = (0.1 * torch.randn(BATCH, frames * 160 + front.window_length, generator=gen)).to(DEVICE)
         win = torch.hann_window(front.window_length, periodic=True, device=DEVICE)
         melm = torch.rand(bins, front.num_mels, generator=gen).to(DEVICE)
@@ -1322,6 +1447,7 @@ def run() -> dict:
         if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
             print(f"  ptxas: {line.strip()}")
     hgmma = check_sass()
+    res_usage = check_local_memory()
     silu_bad = kern.silu_epilogue_mismatches()
     print(f"  bf16 GEMM silu epilogue vs apply_epilogue over all 2^32 fp32 inputs: {silu_bad} "
           f"results differ")
@@ -1441,8 +1567,13 @@ def run() -> dict:
     print("phase 13: timings")
     bench = [(0.1 * rs.randn(10 * 16000)).astype(np.float32) for _ in range(4 * BATCH)]
     rates = clips_per_s(engine, bench)
+    engine_k8 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                           dtype=torch.bfloat16, fused_frontend=True)
+    rates_k8 = clips_per_s(engine_k8, bench)
+    del engine_k8
     print(f"  embed_audio {rates[0]:.1f} / {rates[1]:.1f} clips/s (10-s clips, bf16, "
-          f"batch {BATCH}, {len(bench)} clips per run; {label})")
+          f"batch {BATCH}, {len(bench)} clips per run; {label}); with fused_frontend=True (K8) "
+          f"{rates_k8[0]:.1f} / {rates_k8[1]:.1f}")
     engine32 = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
                           dtype=torch.float32)
     rates32 = clips_per_s(engine32, bench)
@@ -1488,10 +1619,11 @@ def run() -> dict:
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
             "log_mel_fast_3000": {"ms": times["log_mel_fast_3000"][0],
                                   "plain_ms": times["log_mel_fast_3000"][1]},
-            "links": links, "attention_host": host, "hgmma": hgmma,
+            "links": links, "attention_host": host, "hgmma": hgmma, "res_usage": res_usage,
             "silu_epilogue_mismatches": silu_bad,
             "variant_paths": variants, "inference_grads": grads,
-            "clips_per_s": {"10s_bf16": rates, "10s_fp32": rates32, "30s_bf16": rates30},
+            "clips_per_s": {"10s_bf16": rates, "10s_bf16_fused_frontend": rates_k8,
+                            "10s_fp32": rates32, "30s_bf16": rates30},
             "tiny_engine_cosine": tiny_cos,
             "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},
             "gpu": label}

@@ -12,8 +12,10 @@ with every epilogue, the bf16 attention and K7 at head dims other than 64
 and 96, and the caco_tiny bf16 engine (K1 at Dh 16) against the CPU engine;
 the wgmma K7 (bf16, Dh 64 and 96, S = 1 … 579, causal and not, logits
 above the clamp), heads past 128 columns (Dh 160 … 384: the attention
-link, K4, K5, K7 and a K1 chain at Dh 256), and K5 at the clip length
-against the padded call, bit for bit.
+link, K4, K5, K7 and a K1 chain at Dh 256), K5 at the clip length
+against the padded call, bit for bit, and K8 at 1 … 3000 frames with a
+silent clip and a DC plus Nyquist clip, at the default frontend and at
+mel_fmax = 7600.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -182,6 +184,66 @@ def test_log_mel_kernel_matches_plain(cuda, seconds):
     assert kern.LAUNCHES["log_mel"] == 1
     assert got.shape == (3, frames, 128) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-4)
+
+
+def _log_mel_clips(frames, seed):
+    """(4, frames·160) buffers: noise, a silent clip, a DC offset plus a
+    Nyquist tone over noise, 0.1 each (most of its energy in bins 0 and
+    256, which K8 skips), and a quiet clip (1e-4).  A louder tone over less
+    noise leaves bins whose sums cancel, where two fp32 orders of one sum
+    differ by more than 1e-4 in the log-mel."""
+    gen = torch.Generator().manual_seed(seed)
+    n = frames * 160
+    bufs = 0.1 * torch.randn(4, n, generator=gen)
+    bufs[1] = 0.0
+    bufs[2] += 0.1 + 0.1 * (1 - 2 * (torch.arange(n) % 2))
+    bufs[3] *= 1e-3
+    return bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmax", [None, 7600.0])
+@pytest.mark.parametrize("frames", [1, 63, 64, 65, 1000, 3000])
+def test_log_mel_kernel_at_frame_edges(cuda, frames, fmax):
+    """K8 over one block's edge (63, 64, 65 frames), a single frame and the
+    10-s and 30-s lengths, at the default frontend (bins 1–255) and at
+    mel_fmax = 7600 (bins 1–243); and K8′ against it under chip_smoke.py's
+    rule: within JAX's 2e-4 wherever the plain bf16×3 DFT is, elsewhere no
+    farther than the plain version plus 1e-4 (the DC plus Nyquist clip's
+    leakage bins nearly cancel, and there bf16×3 itself is farther)."""
+    front = FrontendConfig(mel_fmax=fmax)
+    rows = fused.buffer_to_rows(_log_mel_clips(frames, 13), frames, front)
+    plain = fused.fused_log_mel_plain(rows, front, frames)
+    kern.reset_launches()
+    got = fused.fused_log_mel(rows.to(cuda), front, frames)
+    fast = fused.fused_log_mel(rows.to(cuda), front, frames, fast_dft=True)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["log_mel"] == 1 and kern.LAUNCHES["log_mel_fast"] == 1
+    assert got.shape == (4, frames, 128)
+    _check(got, plain, (1e-4, 0.0))
+    got, fast = got.cpu(), fast.cpu()
+    err_plain = (fused.fused_log_mel_plain(rows, front, frames, fast_dft=True) - got).abs()
+    assert ((fast - got).abs() <= torch.clamp(err_plain + 1e-4, min=2e-4)).all()
+    assert (got[1] == got[1, 0, 0]).all()  # silence: log(offset) everywhere
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_size,hop", [(1024, 160), (512, 128)])
+def test_log_mel_kernels_other_frontends(cuda, fft_size, hop):
+    """Frontends no configuration uses but the Pallas kernel takes: 513
+    bins (two passes of 256, the sums carried in the output between them)
+    and a hop of 128 (the kernels' runtime-hop instantiation); K8 and K8′
+    against their plain versions."""
+    front = FrontendConfig(fft_size=fft_size, hop_length=hop)
+    frames = 150
+    gen = torch.Generator().manual_seed(14)
+    bufs = 0.1 * torch.randn(3, frames * hop, generator=gen)
+    bufs[1] = 0.0
+    rows = fused.buffer_to_rows(bufs, frames, front)
+    for fast in (False, True):
+        got = fused.fused_log_mel(rows.to(cuda), front, frames, fast_dft=fast)
+        assert got.shape == (3, frames, 128)
+        _check(got, fused.fused_log_mel_plain(rows, front, frames, fast_dft=fast), (1e-4, 0.0))
 
 
 def _qkv(b, s, d, lengths, dtype, seed, scale=1.5):
