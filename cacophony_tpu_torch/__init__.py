@@ -14,6 +14,10 @@ and its pooler → text embedding; and the contrastive score, served by
 audio_patch_batch, embed_texts, score).  The stage-2 training step
 (`train/train.py`), with the caption decoder and the training frontend;
 its audio attention runs the K4 / K5 kernels and K4's backward K7.
+Released checkpoints load with `load_caco` (a Flax msgpack reader of its
+own, checkpoints/msgpack.py), and `python -m cacophony_tpu_torch.train.runner`
+trains stage 2 from a folder of audio files and captions (host decode in
+native/, the loader in data/pipeline.py), saving and resuming its state.
 """
 
 __version__ = "0.1.0"
@@ -27,4 +31,8 @@ def __getattr__(name):
         from cacophony_tpu_torch.runtime import CacoEngine
 
         return CacoEngine
+    if name == "load_caco":
+        from cacophony_tpu_torch.checkpoints.io import load_caco
+
+        return load_caco
     raise AttributeError(name)

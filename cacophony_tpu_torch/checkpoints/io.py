@@ -1,0 +1,254 @@
+"""Checkpoint IO: released Flax-msgpack checkpoints in, the port's own
+checkpoints and training state in and out (cacophony_tpu/checkpoints/io.py).
+
+- `load_caco(path)`: the released Cacophony file (read by
+  `checkpoints/msgpack.py`, no flax) → the JAX-layout tree
+  (`convert.convert_caco_params`) → a `CacoModel` through
+  `bridge.params_from_jax`, on the card unless `device="cpu"`.  Parameter
+  counts are asserted against the published sizes (85.26 M audio / 125.23 M
+  text / 76.46 M decoder, reference README.md:59-70).  With `cfg=None`
+  every shape-recoverable dimension is inferred from the checkpoint.
+- `save_params` / `load_params`: a model's state dict with `torch.save` /
+  `torch.load(weights_only=True)` (orbax in the JAX package).
+- `save_train_state` / `latest_step` / `load_train_state`: a `TrainState`
+  under `path/step_%08d/` with keep-N pruning — the model's state dict,
+  AdamW's `mu` (in its own dtype, bf16 by default) and `nu` in
+  `named_parameters()` order, `count` and `step`.
+
+`load_audiomae` and the stage-1 configs wait for ROADMAP queue A item 3.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import shutil
+from typing import Optional
+
+import torch
+
+from cacophony_tpu_torch.checkpoints.bridge import params_from_jax
+from cacophony_tpu_torch.checkpoints.convert import convert_caco_params
+from cacophony_tpu_torch.checkpoints.msgpack import restore_checkpoint
+from cacophony_tpu_torch.configs import AudioEncoderConfig, CacoConfig, TextConfig, caco_base
+from cacophony_tpu_torch.models.caco import CacoModel
+
+# Published parameter counts (reference README.md:59-70), in millions.
+PUBLISHED_PARAM_COUNTS_M = {"audio": 85.26, "text": 125.23, "decoder": 76.46}
+
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+# ----------------------------------------- shape-driven config inference
+#
+# Not recoverable from shapes (kept from `base`): the attention-pool head
+# count (the query is stored flat), the text tower's head count (2-D fused
+# kernels), dropout rates, the logit-scale init, the compute dtype.
+
+def _shape(x) -> tuple:
+    return tuple(x.shape)
+
+
+def infer_audio_encoder_config(ref_audio: dict, base: Optional[AudioEncoderConfig] = None,
+                               ) -> AudioEncoderConfig:
+    """Raw reference audio-tower tree → config.  The head count comes from
+    the flax per-head MHA kernel (D, H, Dh)."""
+    base = base or AudioEncoderConfig()
+    patch_size, hidden = _shape(ref_audio["Dense_0"]["kernel"])
+    layer0 = ref_audio["AudioEncoderLayer_0"]
+    _, heads, _ = _shape(layer0["MultiHeadDotProductAttention_0"]["query"]["kernel"])
+    return dataclasses.replace(
+        base,
+        hidden_size=int(hidden),
+        patch_size=int(patch_size),
+        num_layers=sum(1 for k in ref_audio if k.startswith("AudioEncoderLayer_")),
+        num_heads=int(heads),
+        intermediate_size=int(_shape(layer0["MLP_0"]["Dense_0"]["kernel"])[1]),
+        num_freq_patches=int(_shape(ref_audio["freq_positional_embedding"])[0]),
+    )
+
+
+def infer_text_config(ref_text: dict, base: Optional[TextConfig] = None, *,
+                      cross_attention: bool = False) -> TextConfig:
+    """Raw reference RoBERTa tree (scan-stacked or numbered layers) →
+    config.  RoBERTa's 64-d heads are assumed when the hidden size differs
+    from `base`."""
+    base = base or TextConfig()
+    layer = ref_text["encoder"]["layer"]
+    if "ScanFlaxRobertaLayer_0" in layer:
+        stacked = layer["ScanFlaxRobertaLayer_0"]
+        q_kernel = stacked["attention"]["self"]["query"]["kernel"]
+        num_layers, hidden = (int(d) for d in _shape(q_kernel)[:2])
+        inter = int(_shape(stacked["intermediate"]["dense"]["kernel"])[2])
+        has_cross = "crossattention" in stacked
+    else:
+        num_layers = len(layer)
+        layer0 = layer[sorted(layer, key=int)[0]]
+        hidden = int(_shape(layer0["attention"]["self"]["query"]["kernel"])[0])
+        inter = int(_shape(layer0["intermediate"]["dense"]["kernel"])[1])
+        has_cross = "crossattention" in layer0
+    # the caption decoder has no embedding table: its vocabulary comes from
+    # decoder_proj, max_position stays at base
+    emb = ref_text.get("embeddings")
+    if emb is not None:
+        vocab = int(_shape(emb["word_embeddings"]["embedding"])[0])
+        max_pos = int(_shape(emb["position_embeddings"]["embedding"])[0])
+    else:
+        vocab = (int(_shape(ref_text["decoder_proj"]["kernel"])[1])
+                 if "decoder_proj" in ref_text else base.vocab_size)
+        max_pos = base.max_position_embeddings
+    heads = base.num_heads if hidden == base.hidden_size else max(1, hidden // 64)
+    return dataclasses.replace(
+        base,
+        vocab_size=vocab,
+        hidden_size=hidden,
+        num_layers=num_layers,
+        num_heads=heads,
+        intermediate_size=inter,
+        max_position_embeddings=max_pos,
+        cross_attention=cross_attention or has_cross,
+    )
+
+
+def infer_caco_config(ref_params: dict, base: Optional[CacoConfig] = None) -> CacoConfig:
+    """Raw released-CACO tree (`state['0']['params']`) → config.  The
+    attention-pool head count stays at `base` (8, the JAX loader's value)."""
+    base = base or caco_base()
+    dec_tree = ref_params.get("decoder_module")
+    return dataclasses.replace(
+        base,
+        audio=infer_audio_encoder_config(ref_params["audio_module"], base.audio),
+        text=infer_text_config(ref_params["text_module"], base.text),
+        decoder=(infer_text_config(dec_tree, base.decoder, cross_attention=True)
+                 if dec_tree is not None else base.decoder),
+        use_decoder=dec_tree is not None,
+        projection_size=int(_shape(ref_params["text_proj"]["kernel"])[1]),
+    )
+
+
+# --------------------------------------------------- released checkpoints
+
+def _restore_msgpack(path: str):
+    state = restore_checkpoint(path, target=None)
+    if state is None:
+        raise FileNotFoundError(f"no checkpoint found at {path}")
+    return state
+
+
+def count_params(module: torch.nn.Module) -> int:
+    """What the JAX package's `count_params` counts: every parameter
+    element (the port's modules hold no buffers)."""
+    return sum(p.numel() for p in module.parameters())
+
+
+def _check_counts(model: CacoModel, strict: bool):
+    for key, published in PUBLISHED_PARAM_COUNTS_M.items():
+        if not hasattr(model, key):
+            continue
+        ours = count_params(getattr(model, key)) / 1e6
+        if abs(ours - published) > 0.02 and strict:
+            raise ValueError(
+                f"param count mismatch for {key}: {ours:.2f}M vs published "
+                f"{published}M — wrong checkpoint or layout drift"
+            )
+
+
+def load_caco(ckpt_path: str, cfg: Optional[CacoConfig] = None, *,
+              strict_counts: bool = True, device="cuda"):
+    """Released Cacophony checkpoint → (cfg, CacoModel on `device`).
+
+    A file is read as it is; a directory is resolved to its newest
+    `checkpoint_<N>`.  With `cfg=None` the configuration is inferred from
+    the checkpoint's shapes.  The model runs on the card unless
+    device="cpu" is given; without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f'load_caco on {device}: no CUDA device; pass device="cpu"')
+    state = _restore_msgpack(ckpt_path)
+    ref = state["0"]["params"]
+    cfg = cfg or infer_caco_config(ref)
+    model = params_from_jax(convert_caco_params(ref), cfg)
+    _check_counts(model, strict_counts)
+    return cfg, model.to(device)
+
+
+# ------------------------------------------------------- our own checkpoints
+
+def save_params(model: torch.nn.Module, path: str) -> None:
+    """A model's state dict to `path` (torch.save; orbax in the JAX package)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(model.state_dict(), path)
+
+
+def load_params(path: str, like: Optional[torch.nn.Module] = None):
+    """→ the saved state dict, or `like` with it loaded (strict) when given."""
+    device = next(like.parameters()).device if like is not None else "cpu"
+    state = torch.load(path, map_location=device, weights_only=True)
+    if like is None:
+        return state
+    like.load_state_dict(state)
+    return like
+
+
+# ---------------------------------------------------- training state resume
+
+def _steps(path: str):
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(m.group(1)) for m in (re.fullmatch(r"step_(\d+)", d)
+                                             for d in os.listdir(path)) if m)
+
+
+def save_train_state(state, path: str, *, keep: int = 3) -> str:
+    """A TrainState (train/train.py) to `path/step_%08d/`, written through a
+    temporary directory and a rename; prunes all but the newest `keep`."""
+    model, opt, step = state.params, state.opt_state, int(state.step)
+    names = [n for n, _ in model.named_parameters()]
+    final = os.path.join(path, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save({"params": model.state_dict(), "names": names, "mu": list(opt.mu),
+                "nu": list(opt.nu), "count": int(opt.count), "step": step},
+               os.path.join(tmp, TRAIN_STATE_FILE))
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+    if keep:
+        for old in _steps(path)[:-keep]:
+            shutil.rmtree(os.path.join(path, f"step_{old:08d}"), ignore_errors=True)
+    return final
+
+
+def latest_step(path: str) -> Optional[int]:
+    steps = _steps(path)
+    return steps[-1] if steps else None
+
+
+def load_train_state(path: str, like, step: Optional[int] = None):
+    """Restore a TrainState saved by save_train_state into `like` (a
+    TrainState of the same model and optimizer): the parameters and the
+    moments are copied in place, each keeping its device and dtype."""
+    from cacophony_tpu_torch.train.train import AdamWState, TrainState
+
+    if step is None:
+        step = latest_step(path)
+        if step is None:
+            raise FileNotFoundError(f"no train-state checkpoints under {path}")
+    model = like.params
+    device = next(model.parameters()).device
+    saved = torch.load(os.path.join(path, f"step_{step:08d}", TRAIN_STATE_FILE),
+                       map_location=device, weights_only=True)
+    names = [n for n, _ in model.named_parameters()]
+    if saved["names"] != names:
+        raise ValueError("the saved optimizer state is for another model: its parameter "
+                         "names differ")
+    model.load_state_dict(saved["params"])
+    opt = like.opt_state
+    for mine, theirs in zip(list(opt.mu) + list(opt.nu), saved["mu"] + saved["nu"]):
+        if mine.dtype != theirs.dtype or mine.shape != theirs.shape:
+            raise ValueError(f"saved moment {tuple(theirs.shape)} {theirs.dtype} vs "
+                             f"{tuple(mine.shape)} {mine.dtype}")
+        mine.copy_(theirs)
+    return TrainState(model, AdamWState(opt.mu, opt.nu, int(saved["count"])), int(saved["step"]))
+

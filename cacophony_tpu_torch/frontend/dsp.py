@@ -108,3 +108,26 @@ def log_mel_spectrogram(audio: torch.Tensor, cfg: FrontendConfig) -> torch.Tenso
     spec = stft_magnitude(audio, cfg)
     mel = spec @ _device_matrices(cfg, spec.device)[1]
     return torch.log(mel + cfg.log_offset) * cfg.log_scale + cfg.log_bias
+
+
+def resample_fft_host(audio: np.ndarray, num_out: int) -> np.ndarray:
+    """Host-side FFT resample, bit-matching scipy.signal.resample for real
+    input (a copy of cacophony_tpu/frontend/dsp.py:176-199).  The loader's
+    path (reference: scipy resample in eval_utils.py:14); numpy only."""
+    num_in = audio.shape[-1]
+    if num_in == num_out:
+        return audio
+    x = np.fft.rfft(audio.astype(np.float32))
+    nbins_out = num_out // 2 + 1
+    n_keep = min(num_in, num_out)
+    if num_out < num_in:
+        y = x[..., :nbins_out].copy()
+        if n_keep % 2 == 0:
+            y[..., n_keep // 2] *= 2.0
+    else:
+        pad = [(0, 0)] * (x.ndim - 1) + [(0, nbins_out - x.shape[-1])]
+        y = np.pad(x, pad)
+        if n_keep % 2 == 0:
+            y[..., n_keep // 2] *= 0.5
+    out = np.fft.irfft(y, n=num_out)
+    return (out * (num_out / num_in)).astype(np.float32)

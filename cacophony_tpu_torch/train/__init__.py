@@ -1,1 +1,1 @@
-"""Training: objectives and the stage-2 step."""
+"""Training: objectives, the stage-2 step and its runner (`python -m cacophony_tpu_torch.train.runner`)."""

@@ -1,0 +1,169 @@
+"""Training runner CLI: stage-2 (CACO) training on one device
+(cacophony_tpu/train/runner.py:47-211).
+
+    python -m cacophony_tpu_torch.train.runner --stage caco --data-dir DIR \
+        --workdir WORK --tokenizer TOKDIR [--device cpu] [--dtype bfloat16]
+
+Data layout: DIR holds wavs (any depth) and `captions.csv` with columns
+(file_name, caption), several rows per file allowed, and optionally
+`synthetic_captions.csv` in the same format.  The pieces: the host loader
+(native decode, seeded caption choice) → pinned prefetch → the device
+frontend with random patch subsampling → the stage-2 step → JSONL metrics
+every `--log-every` steps and the train state every `--checkpoint-every`
+steps and at the end, resumed from `WORK/checkpoints`.
+
+Step i draws its patch subset and dropout masks from a generator seeded by
+(seed, i), as JAX folds the step into its key, and the loader skips the
+batches already trained on without decoding them: a resumed run draws what
+an unbroken run draws.  `--total-steps` (default `--steps`) is the length
+of the learning-rate schedule, so a run may stop early and resume on the
+same schedule.  `--dtype` is the compute dtype (the JAX runner trains in
+fp32; bf16 runs K7 as K4's backward at 500 patches).
+
+Not ported yet: `--stage mae` and `--init-audio-from-mae` (ROADMAP queue A
+item 3), `--init-text-from-hf` (needs the HF files), the mesh (`--dp`,
+`--tp`; queue A item 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import dataclasses
+import glob
+import itertools
+import os
+import sys
+from typing import Dict, List
+
+import torch
+
+from cacophony_tpu_torch import configs
+from cacophony_tpu_torch.checkpoints.io import latest_step, load_train_state, save_train_state
+from cacophony_tpu_torch.configs import FrontendConfig, PatchConfig
+from cacophony_tpu_torch.data.pipeline import (
+    CacoTrainLoader,
+    TrainDataConfig,
+    device_train_frontend,
+    prefetch_to_device,
+)
+from cacophony_tpu_torch.data.tokenizer import load_tokenizer
+from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
+from cacophony_tpu_torch.models.caco import caco_init
+from cacophony_tpu_torch.train.train import TrainConfig, init_train_state, make_caco_train_step
+from cacophony_tpu_torch.utils import MetricsLogger
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _read_captions(path: str) -> Dict[str, List[str]]:
+    out: Dict[str, List[str]] = {}
+    if not os.path.exists(path):
+        return out
+    with open(path, newline="") as f:
+        for row in csv.DictReader(f):
+            out.setdefault(row["file_name"].split(".wav")[0], []).append(row["caption"])
+    return out
+
+
+def build_parser():
+    p = argparse.ArgumentParser("cacophony_tpu_torch.train.runner")
+    p.add_argument("--stage", choices=["caco", "mae"], default="caco")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--workdir", required=True, help="checkpoints + metrics")
+    p.add_argument("--tokenizer", default="roberta-base",
+                   help="a directory holding vocab.json and merges.txt")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--total-steps", type=int, default=None,
+                   help="length of the learning-rate schedule (default: --steps)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--buffer-seconds", type=float, default=10.0)
+    p.add_argument("--patches-seq-len", type=int, default=500)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup-steps", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-every", type=int, default=500)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
+    p.add_argument("--tiny-model", action="store_true", help="tiny config (smoke tests)")
+    p.add_argument("--init-audio-from-mae", default=None,
+                   help="AudioMAE checkpoint to transplant the audio tower from")
+    p.add_argument("--init-text-from-hf", default=None,
+                   help="HF roberta name/path to initialize the text tower")
+    return p
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step `step`: seeded by (seed, step) alone."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return g
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.stage == "mae" or args.init_audio_from_mae:
+        sys.exit("the MAE stage (--stage mae, --init-audio-from-mae) is not ported yet: it "
+                 "waits for ROADMAP queue A item 3")
+    if args.init_text_from_hf:
+        sys.exit("--init-text-from-hf is not ported yet: it waits for the HF roberta files")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
+    os.makedirs(args.workdir, exist_ok=True)
+    tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
+                     total_steps=args.total_steps or args.steps)
+
+    # ---- data
+    wavs = sorted(glob.glob(os.path.join(args.data_dir, "**", "*.wav"), recursive=True))
+    if not wavs:
+        raise FileNotFoundError(f"no wavs under {args.data_dir}")
+    captions = _read_captions(os.path.join(args.data_dir, "captions.csv"))
+    synthetic = _read_captions(os.path.join(args.data_dir, "synthetic_captions.csv"))
+    if not captions:
+        raise FileNotFoundError("stage caco needs captions.csv")
+    tokenizer = load_tokenizer(args.tokenizer)
+    dcfg = TrainDataConfig(batch_size=args.batch_size, buffer_seconds=args.buffer_seconds,
+                           seed=args.seed)
+    loader = CacoTrainLoader([w for w in wavs if os.path.basename(w).split(".wav")[0] in captions],
+                             captions, tokenizer, dcfg, synthetic_captions=synthetic)
+
+    # ---- model / frontend
+    front = FrontendConfig()
+    buffer_samples = int(round(args.buffer_seconds * front.sample_rate))
+    full_seq = num_patches_for_samples(buffer_samples, front, PatchConfig())
+    full_patch = PatchConfig(patches_seq_len=max(full_seq, args.patches_seq_len))
+    frontend = device_train_frontend(front, full_patch, args.patches_seq_len)
+    cfg = (configs.caco_tiny(vocab_size=max(300, getattr(tokenizer, "vocab_size", 0) or 0))
+           if args.tiny_model else configs.caco_base())
+    cfg = dataclasses.replace(cfg, dtype=_DTYPES[args.dtype])
+    model = caco_init(cfg, torch.Generator().manual_seed(args.seed)).to(device)
+    step_fn = make_caco_train_step(cfg, tc)
+
+    # ---- state (+ resume)
+    state = init_train_state(model, tc)
+    ck_dir = os.path.join(args.workdir, "checkpoints")
+    if latest_step(ck_dir) is not None:
+        state = load_train_state(ck_dir, state)
+        print(f"resumed from step {state.step}", flush=True)
+    metrics_log = MetricsLogger(os.path.join(args.workdir, "metrics.jsonl"))
+    start = state.step
+    loader.start_batch = start  # resume the data stream, don't replay it
+    batches = itertools.islice(loader, max(0, args.steps - start))
+    for step_i, host in enumerate(prefetch_to_device(batches, size=2, device=device), start):
+        gen = step_generator(args.seed, step_i, device)
+        batch = frontend(gen, host["audio_bufs"], host["audio_lens"])
+        batch["text_input_ids"], batch["text_mask"] = host["text_input_ids"], host["text_mask"]
+        state, metrics = step_fn(state, batch, gen)
+        if step_i % args.log_every == 0:
+            metrics_log.log(step=step_i, **{k: float(v) for k, v in metrics.items()})
+        if args.checkpoint_every and (step_i + 1) % args.checkpoint_every == 0:
+            save_train_state(state, ck_dir)
+    save_train_state(state, ck_dir)
+    print(f"done at step {state.step}", flush=True)
+    return state
+
+
+if __name__ == "__main__":
+    main()

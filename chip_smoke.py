@@ -96,6 +96,22 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    rate and the bf16 one with fused_frontend=True beside the default; the
    K5 call against its kernel alone, and the host microseconds per K4 / K5
    call.
+14. checkpoints, host data and the runner at caco_base: (a) phase 5's
+   model written through caco_params_to_reference and the port's msgpack
+   writer (a released-layout file, ~1.16 GB) and read back with
+   `load_caco` (config inferred, the published count guards on): every
+   tensor identical, the inferred config caco_base(), a bf16 10-s engine
+   on the loaded model with K1 12 times per bucket and cosine >= 0.99999
+   against phase 5; (b) `train.runner.main` on 48 clips of 3-10 s (PCM16
+   mono 16 kHz, PCM16 stereo 44.1 kHz, float32 48 kHz) with a
+   captions.csv and a tokenizer directory, bf16, B=16, 500 patches: 3
+   steps (every file decoded natively, K4 and K7 12 times per step, finite
+   losses, step_00000003 written), then resumed to step 5 (the three
+   batches trained on skipped without decoding them, K4 and K7 12 times
+   per step); the median step time; (c) one bf16 10-s loss and backward
+   with `remat_encoder=True` and one without, from the same parameters and
+   generator state: equal losses, gradients within the bf16 chain bound,
+   K4 24 and 12 times.  The temporary directories are deleted.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
@@ -106,12 +122,16 @@ It needs a CUDA device and never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,6 +139,9 @@ import torch
 import torch.nn.functional as F
 
 from cacophony_tpu_torch import configs
+from cacophony_tpu_torch.checkpoints import bridge, convert, msgpack
+from cacophony_tpu_torch.checkpoints import io as ckpt_io
+from cacophony_tpu_torch.data import pipeline
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
 from cacophony_tpu_torch.frontend import fused
@@ -127,10 +150,11 @@ from cacophony_tpu_torch.models import caco
 from cacophony_tpu_torch.models.audio import LN_EPS, ViTBlock, audio_input_embedding, encoder_layer
 from cacophony_tpu_torch.models.caco import caco_init, get_audio_embedding
 from cacophony_tpu_torch.models.layers import layer_norm
+from cacophony_tpu_torch.native import wavio
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
-from cacophony_tpu_torch.train import train
+from cacophony_tpu_torch.train import runner, train
 
 SEED = 0
 DEVICE = "cuda"
@@ -1104,12 +1128,17 @@ def tiny_engine_phase(wavs):
     return got, cos
 
 
-def byte_tokenizer():
-    """Degenerate byte-level BPE: specials + all 256 byte symbols, no merges."""
+def byte_vocab() -> dict:
+    """Specials + all 256 byte symbols."""
     vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
     for c in _bytes_to_unicode().values():
         vocab[c] = len(vocab)
-    return ByteLevelBPETokenizer(vocab, [])
+    return vocab
+
+
+def byte_tokenizer():
+    """Degenerate byte-level BPE: byte_vocab(), no merges."""
+    return ByteLevelBPETokenizer(byte_vocab(), [])
 
 
 @torch.inference_mode()
@@ -1419,6 +1448,217 @@ def links_phase(blk, label):
     return out
 
 
+RUNNER_CLIPS, RUNNER_STEPS, RUNNER_RESUMED_STEPS = 48, 3, 5
+COS_LOADED = 0.99999  # the same weights through the same kernels
+
+
+def checkpoint_phase(cfg, model, wavs, a_emb, tok):
+    """Phase 14a: phase 5's model → a released-layout msgpack file → load_caco
+    (config inferred, strict counts) → a bf16 10-s engine."""
+    n_buckets = -(-len(wavs) // BATCH)
+    print("phase 14a: a released-layout checkpoint at caco_base, written and loaded by the port")
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        ref = convert.caco_params_to_reference(bridge.params_to_jax(model), cfg.audio.num_heads)
+        path = msgpack.save_checkpoint(tmp, {"0": {"params": ref}}, step=0)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del ref
+        t0 = time.perf_counter()
+        cfg_loaded, loaded = ckpt_io.load_caco(tmp)  # cfg=None, strict_counts=True, on the card
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    counts = {k: ckpt_io.count_params(getattr(loaded, k)) / 1e6
+              for k in ckpt_io.PUBLISHED_PARAM_COUNTS_M}
+    print(f"  {os.path.basename(path)}: {size} bytes ({size / 2 ** 30:.3f} GiB), written in "
+          f"{write_s:.2f} s, loaded onto the card in {load_s:.2f} s; counts (M) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in counts.items()))
+    check(cfg_loaded == configs.caco_base(), f"inferred config {cfg_loaded} is not caco_base()")
+    src = model.state_dict()
+    got_state = loaded.state_dict()
+    check(set(got_state) == set(src), "the loaded model has other parameters")
+    differ = [k for k, t in got_state.items() if not torch.equal(t, src[k])]
+    check(not differ, f"loaded tensors differ from the source model: {differ[:4]}")
+    print(f"  {len(got_state)} tensors, every one identical to the source model's")
+    engine = CacoEngine(cfg_loaded, loaded, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                        dtype=torch.bfloat16)
+    emb, got = drive("bf16 10-s embed_audio on the loaded model", lambda: engine.embed_audio(wavs),
+                     {"k1_layer": cfg.audio.num_layers * n_buckets, "k2_block": 0, "k3_block": 0})
+    check_embeddings("loaded-model audio", emb, len(wavs), cfg)
+    cos = float(cosine_rows(emb, a_emb).min())
+    print(f"  cosine loaded vs source model, bf16 ({len(wavs)} clips, min) {cos:.7f} "
+          f"(≥ {COS_LOADED})")
+    check(cos >= COS_LOADED, "the loaded model's embeddings disagree with the source model's")
+    del engine, loaded
+    return got, {"file_bytes": size, "write_s": write_s, "load_s": load_s, "param_counts_m": counts,
+                 "cosine_min": cos}
+
+
+def write_runner_data(root: str, rs):
+    """48 clips of 3-10 s in three formats (the second one 10 s at 44.1 kHz),
+    captions.csv, and a tokenizer directory holding byte_vocab()."""
+    from scipy.io import wavfile
+
+    data, tok = os.path.join(root, "data"), os.path.join(root, "tok")
+    os.makedirs(data)
+    os.makedirs(tok)
+    rows = [["file_name", "caption"]]
+    for i in range(RUNNER_CLIPS):
+        seconds = 10.0 if i == 1 else rs.uniform(3, 10)
+        kind = i % 3
+        sr = (16000, 44100, 48000)[kind]
+        x = (0.1 * rs.randn(int(seconds * sr), 2 if kind == 1 else 1)).astype(np.float32)
+        name = f"clip{i:02d}.wav"
+        if kind == 2:
+            wavfile.write(os.path.join(data, name), sr, x[:, 0])  # float32
+        else:
+            wavfile.write(os.path.join(data, name), sr, (x * 32767).astype(np.int16).squeeze())
+        rows += [[name, f"sound number {i}"], [name, f"another take of sound {i}"]]
+    with open(os.path.join(data, "captions.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    with open(os.path.join(tok, "vocab.json"), "w") as f:
+        json.dump(byte_vocab(), f)
+    with open(os.path.join(tok, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return data, tok
+
+
+def run_main(argv):
+    """runner.main(argv) with its standard output captured and echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = runner.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}")
+    return state, out
+
+
+def runner_phase(cfg, rs, label):
+    """Phase 14b: the stage-2 runner from audio files on the card, then a
+    resumed run."""
+    n = cfg.audio.num_layers
+    print(f"phase 14b: train.runner --stage caco at caco_base, bf16, B={TRAIN_BATCH}, 500 patches, "
+          f"{RUNNER_CLIPS} clips")
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_runner_")
+    try:
+        data, tok = write_runner_data(tmp, rs)
+        work = os.path.join(tmp, "work")
+        argv = ["--stage", "caco", "--data-dir", data, "--workdir", work, "--tokenizer", tok,
+                "--batch-size", str(TRAIN_BATCH), "--buffer-seconds", "10",
+                "--patches-seq-len", "500", "--total-steps", str(RUNNER_RESUMED_STEPS),
+                "--checkpoint-every", "0", "--log-every", "1", "--dtype", "bfloat16",
+                "--device", DEVICE]
+        per_step = {"k5": 0, **NO_SERVING_KERNELS}
+        for k in pipeline.DECODE_COUNTS:
+            pipeline.DECODE_COUNTS[k] = 0
+        (state, _), got = drive(f"runner, {RUNNER_STEPS} steps",
+                                lambda: run_main(argv + ["--steps", str(RUNNER_STEPS)]),
+                                {"k4": n * RUNNER_STEPS, "k7": n * RUNNER_STEPS, **per_step})
+        first = dict(pipeline.DECODE_COUNTS)
+        ckpts = sorted(os.listdir(os.path.join(work, "checkpoints")))
+        print(f"  decoded {first} (native decoder, per-file fallback); checkpoints {ckpts}")
+        check(first == {"native": RUNNER_CLIPS, "fallback": 0},
+              f"the native decoder did not decode every file once: {first}")
+        check(state.step == RUNNER_STEPS and ckpts == [f"step_{RUNNER_STEPS:08d}"],
+              f"step {state.step}, checkpoints {ckpts}")
+        del state
+        for k in pipeline.DECODE_COUNTS:
+            pipeline.DECODE_COUNTS[k] = 0
+        resumed = RUNNER_RESUMED_STEPS - RUNNER_STEPS
+        (state, out), got2 = drive(f"runner resumed to step {RUNNER_RESUMED_STEPS}",
+                                   lambda: run_main(argv + ["--steps", str(RUNNER_RESUMED_STEPS)]),
+                                   {"k4": n * resumed, "k7": n * resumed, **per_step})
+        second = dict(pipeline.DECODE_COUNTS)
+        print(f"  decoded {second} in the resumed run")
+        check(f"resumed from step {RUNNER_STEPS}" in out, "the second run did not resume")
+        check(second == {"native": resumed * TRAIN_BATCH, "fallback": 0},
+              f"the resumed run decoded {second}: the trained batches were not skipped")
+        check(state.step == RUNNER_RESUMED_STEPS, f"the resumed run ended at step {state.step}")
+        del state
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = [r["step"] for r in rows]
+        losses = [r["loss"] for r in rows]
+        print(f"  logged steps {steps}, loss {['%.5f' % v for v in losses]}")
+        check(steps == list(range(RUNNER_RESUMED_STEPS)), f"logged steps {steps}")
+        check(all(np.isfinite(losses)), "a logged loss is not finite")
+        # the runner's step time: between consecutive logged rows of one run
+        # (each row reads the step's metrics, which waits for the card).  The
+        # prefetch decodes two batches before a run's first step and each
+        # later batch on the host between two steps: of these intervals only
+        # the one ending at step 1 holds a decode
+        intervals = {b["step"]: 1e3 * (b["time"] - a["time"]) for a, b in zip(rows, rows[1:])
+                     if b["step"] != RUNNER_STEPS}
+        ms = list(intervals.values())
+        print(f"  runner step intervals (ending at step: ms) "
+              f"{ {k: round(v, 1) for k, v in intervals.items()} }, median {np.median(ms):.1f} "
+              f"ms ({label})")
+        loader = pipeline.CacoTrainLoader([], {}, None, pipeline.TrainDataConfig())
+        _, lens = loader._decode([os.path.join(data, "clip01.wav")])
+        check(lens.tolist() == [160000], f"a 10-s 44.1-kHz clip decoded to {lens.tolist()} samples")
+        print("  a 10-s clip at 44.1 kHz comes out 160000 samples long")
+        # the host's share of a step: one batch's native decode alone, and
+        # with the resample to 16 kHz (the loader's _decode)
+        paths = [os.path.join(data, f"clip{i:02d}.wav") for i in range(TRAIN_BATCH)]
+        native_ms, decode_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            wavio.decode_batch(paths, loader.buffer_samples * loader.MAX_SOURCE_RATE_RATIO)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            loader._decode(paths)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  host decode of {TRAIN_BATCH} clips (a third at 44.1 kHz, a third at 48 kHz): "
+              f"native {['%.1f' % v for v in native_ms]} ms, with the resample "
+              f"{['%.1f' % v for v in decode_ms]} ms")
+    finally:
+        shutil.rmtree(tmp)
+    return got, got2, {"decoded": first, "decoded_resumed": second, "loss": losses,
+                       "step_ms": intervals, "median_step_ms": float(np.median(ms)),
+                       "host_native_decode_ms": native_ms, "host_decode_ms": decode_ms}
+
+
+def remat_phase(cfg, rs):
+    """Phase 14c: one bf16 10-s loss and backward with remat_encoder on and
+    one with it off, from the same parameters and generator state."""
+    n = cfg.audio.num_layers
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    model = caco_init(cfg16, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    batch = train_batch(cfg16, rs, TRAIN_BATCH, 10, 500)
+    print(f"phase 14c: remat_encoder on the card, bf16 10 s, B={TRAIN_BATCH}")
+    out, got = {}, {}
+    for remat in (True, False):
+        loss_fn = train.make_caco_loss(cfg16, train.TrainConfig(remat_encoder=remat))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        model.zero_grad(set_to_none=True)
+
+        def step():
+            loss, _ = loss_fn(model, batch, gen)
+            loss.backward()
+            return float(loss.detach())
+
+        loss, got[remat] = drive(f"loss + backward, remat_encoder={remat}", step,
+                                 {"k4": n * (2 if remat else 1), "k7": n, "k5": 0,
+                                  **NO_SERVING_KERNELS})
+        out[remat] = (loss, [p.grad.detach().clone() if p.grad is not None
+                             else torch.zeros_like(p) for p in model.parameters()])
+    (l_r, g_r), (l_p, g_p) = out[True], out[False]
+    atol, rtol = TOL[torch.bfloat16]["chain"]
+    worst = max(float(((a - b).abs() - rtol * b.abs()).max()) for a, b in zip(g_r, g_p))
+    flat_r, flat_p = torch.cat([g.flatten() for g in g_r]), torch.cat([g.flatten() for g in g_p])
+    rel = float((flat_r - flat_p).norm() / flat_p.norm())
+    print(f"  loss remat {l_r!r} / plain {l_p!r}; gradients: max(|d| - {rtol}·|g|) {worst:.3e} "
+          f"(≤ {atol}), rel L2 {rel:.2e}")
+    check(l_r == l_p, "remat changes the loss")
+    check(worst <= atol, "remat changes the gradients past the bf16 chain bound")
+    del model
+    return got, {"loss": [l_r, l_p], "grad_excess": worst, "grad_rel_l2": rel}
+
+
 def clips_per_s(engine, wavs, runs=2):
     engine.embed_audio(wavs[:BATCH])  # warm
     rates = []
@@ -1599,6 +1839,13 @@ def run() -> dict:
     print(f"  fp32 10-s training step {np.median(train_fp32['step_ms']):.2f} ms/step (median of 3, "
           f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
           f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
+    ckpt_launches, ckpt = checkpoint_phase(cfg, model, wavs, a_emb, tok)
+    run_launches, resume_launches, runner_summary = runner_phase(cfg, rs, label)
+    remat_launches, remat = remat_phase(cfg, rs)
+    print(f"  runner step {runner_summary['median_step_ms']:.1f} ms (median of the intervals, "
+          f"B={TRAIN_BATCH}; with a batch's decode {runner_summary['step_ms'][1]:.1f} ms); "
+          f"checkpoint {ckpt['file_bytes']} bytes written in "
+          f"{ckpt['write_s']:.2f} s, loaded in {ckpt['load_s']:.2f} s ({label})")
     err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
@@ -1626,6 +1873,14 @@ def run() -> dict:
                             "10s_fp32": rates32, "30s_bf16": rates30},
             "tiny_engine_cosine": tiny_cos,
             "train": {"bf16_10s": train_bf16, "fp32_10s": train_fp32, "bf16_30s": train_30},
+            "checkpoint_runner": {
+                "checkpoint": ckpt, "runner": runner_summary, "remat": remat,
+                "launches": {"loaded_engine_k1": ckpt_launches["k1_layer"],
+                             "runner_k4": run_launches["k4"], "runner_k7": run_launches["k7"],
+                             "resumed_k4": resume_launches["k4"],
+                             "resumed_k7": resume_launches["k7"],
+                             "remat_k4": remat_launches[True]["k4"],
+                             "plain_k4": remat_launches[False]["k4"]}},
             "gpu": label}
 
 

@@ -15,7 +15,9 @@ above the clamp), heads past 128 columns (Dh 160 … 384: the attention
 link, K4, K5, K7 and a K1 chain at Dh 256), K5 at the clip length
 against the padded call, bit for bit, and K8 at 1 … 3000 frames with a
 silent clip and a DC plus Nyquist clip, at the default frontend and at
-mel_fmax = 7600.
+mel_fmax = 7600; `load_caco` of a caco_tiny file onto the card serving
+through K1, and two steps of `train.runner.main` at caco_tiny in bf16 (K4
+and K7 launch counts).
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -764,3 +766,85 @@ def test_k5_at_the_clip_length_equals_the_padded_call(cuda):
                                torch.nn.functional.pad(kv, (0, 0, 0, pad)),
                                torch.nn.functional.pad(mask, (0, pad)), 8)[:, :s]
     assert torch.equal(got, padded)
+
+
+# ---- checkpoints in, trained checkpoints out --------------------------------
+
+@pytest.mark.cuda
+def test_load_caco_on_the_card_serves_through_k1(cuda, tmp_path):
+    """A caco_tiny released-layout file written by the port loads with
+    `load_caco` onto the card (its default device); the bf16 engine on it
+    runs every audio layer on K1 and agrees with the CPU engine on the same
+    file (cosine >= 0.999, the bf16-vs-fp32 bound)."""
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.checkpoints import bridge, convert, io, msgpack
+    from cacophony_tpu_torch.models.caco import caco_init
+    from cacophony_tpu_torch.runtime import CacoEngine
+
+    cfg = configs.caco_tiny()
+    model = caco_init(cfg, torch.Generator().manual_seed(5))
+    ref = convert.caco_params_to_reference(bridge.params_to_jax(model), cfg.audio.num_heads)
+    msgpack.save_checkpoint(str(tmp_path), {"0": {"params": ref}}, step=0)
+    loaded_cfg, loaded = io.load_caco(str(tmp_path), cfg, strict_counts=False)
+    assert next(loaded.parameters()).device.type == "cuda"
+    for name, t in loaded.state_dict().items():
+        assert torch.equal(t.cpu(), model.state_dict()[name]), name
+    rs = np.random.RandomState(35)
+    wavs = [(0.1 * rs.randn(int(sec * 16000))).astype(np.float32) for sec in (10, 3.5, 7)]
+    _reset_layer_launches()
+    got = CacoEngine(loaded_cfg, loaded, batch_size=4, dtype=torch.bfloat16).embed_audio(wavs)
+    assert ea.LAYER_LAUNCHES["k1_layer"] == cfg.audio.num_layers
+    _, cpu_model = io.load_caco(str(tmp_path), cfg, strict_counts=False, device="cpu")
+    ref_emb = CacoEngine(cfg, cpu_model, device="cpu", batch_size=4,
+                         dtype=torch.bfloat16).embed_audio(wavs)
+    cos = (got * ref_emb).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(ref_emb, axis=-1)
+    assert np.isfinite(got).all() and cos.min() >= 0.999, cos
+
+
+@pytest.mark.cuda
+def test_runner_two_steps_on_the_card(cuda, tmp_path):
+    """`train.runner.main` at caco_tiny in bf16 on the card from audio files:
+    2 steps, K4 and K7 once per audio layer per step, every file decoded
+    natively, finite logged losses, the train state saved."""
+    import csv
+    import json
+    import os
+
+    from scipy.io import wavfile
+
+    from cacophony_tpu_torch.data import pipeline
+    from cacophony_tpu_torch.data.tokenizer import _bytes_to_unicode
+    from cacophony_tpu_torch.train import runner
+
+    data, tok = tmp_path / "data", tmp_path / "tok"
+    data.mkdir()
+    tok.mkdir()
+    rows = [["file_name", "caption"]]
+    for i in range(8):
+        sr = (16000, 44100, 48000)[i % 3]
+        x = (0.1 * np.random.RandomState(i).randn(int(sr * 0.7))).astype(np.float32)
+        wavfile.write(str(data / f"c{i}.wav"), sr, x if i % 3 == 2 else (x * 32767).astype(np.int16))
+        rows.append([f"c{i}.wav", f"sound {i}"])
+    with open(data / "captions.csv", "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in _bytes_to_unicode().values():
+        vocab[c] = len(vocab)
+    (tok / "vocab.json").write_text(json.dumps(vocab))
+    (tok / "merges.txt").write_text("#version: 0.2\n")
+    work = str(tmp_path / "work")
+    kern.reset_launches()
+    for k in pipeline.DECODE_COUNTS:
+        pipeline.DECODE_COUNTS[k] = 0
+    state = runner.main(["--stage", "caco", "--data-dir", str(data), "--workdir", work,
+                         "--tokenizer", str(tok), "--steps", "2", "--batch-size", "4",
+                         "--buffer-seconds", "1", "--patches-seq-len", "32", "--tiny-model",
+                         "--dtype", "bfloat16", "--checkpoint-every", "0", "--log-every", "1"])
+    torch.cuda.synchronize()
+    layers = 2  # caco_tiny's audio layers
+    assert kern.LAUNCHES["k4"] == 2 * layers and kern.LAUNCHES["k7"] == 2 * layers
+    assert pipeline.DECODE_COUNTS == {"native": 8, "fallback": 0}
+    assert state.step == 2 and next(state.params.parameters()).device.type == "cuda"
+    losses = [json.loads(line)["loss"] for line in open(os.path.join(work, "metrics.jsonl"))]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert os.listdir(os.path.join(work, "checkpoints")) == ["step_00000002"]

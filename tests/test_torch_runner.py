@@ -1,0 +1,181 @@
+"""The port's training runner on the CPU (`cacophony_tpu_torch.train.runner`,
+the stage-2 counterpart of cacophony_tpu/train/runner.py), its train-state
+checkpoints (save / keep-N / latest_step / resume) and the metrics and
+timing utilities — as tests/test_utils_resume.py holds the JAX package's.
+
+Resume is exact on the CPU: four steps straight and two steps plus a
+resumed two end with the same parameters and AdamW state, bit for bit
+(each step's generator is seeded by (seed, step), the loader skips the
+batches trained on, AdamW's count and the bf16 first moment round-trip).
+"""
+
+import csv
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+from cacophony_tpu_torch import configs
+from cacophony_tpu_torch.checkpoints.io import latest_step, load_train_state, save_train_state
+from cacophony_tpu_torch.data.tokenizer import _bytes_to_unicode
+from cacophony_tpu_torch.models.caco import caco_init
+from cacophony_tpu_torch.train import runner
+from cacophony_tpu_torch.train.train import TrainConfig, init_train_state, make_caco_train_step
+from cacophony_tpu_torch.utils import MetricsLogger, StageTimer, annotate, trace
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    """8 clips of 0.5-1 s (16-kHz PCM16 and 48-kHz float32) with captions,
+    and a byte-level tokenizer directory."""
+    root = tmp_path_factory.mktemp("runner")
+    d = root / "data"
+    d.mkdir()
+    rows = [["file_name", "caption"]]
+    for i in range(8):
+        rs = np.random.RandomState(i)
+        sr = 48000 if i % 2 else 16000
+        wav = (rs.randn(int(sr * (0.5 + 0.07 * i))) * 0.1).astype(np.float32)
+        wavfile.write(str(d / f"c{i}.wav"), sr, wav if i % 2 else (wav * 32767).astype(np.int16))
+        rows.append([f"c{i}.wav", f"sound {i}"])
+        rows.append([f"c{i}.wav", f"another sound {i}"])
+    with open(d / "captions.csv", "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    tok = root / "tok"
+    tok.mkdir()
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in _bytes_to_unicode().values():
+        vocab[c] = len(vocab)
+    (tok / "vocab.json").write_text(json.dumps(vocab))
+    (tok / "merges.txt").write_text("#version: 0.2\n")
+    return str(d), str(tok)
+
+
+def _args(data, workdir, steps):
+    data_dir, tok = data
+    return ["--stage", "caco", "--data-dir", data_dir, "--workdir", workdir, "--tokenizer", tok,
+            "--steps", str(steps), "--total-steps", "4", "--batch-size", "4",
+            "--buffer-seconds", "0.5", "--patches-seq-len", "16", "--tiny-model",
+            "--device", "cpu", "--warmup-steps", "1", "--checkpoint-every", "0",
+            "--log-every", "1"]
+
+
+def test_runner_two_steps_writes_finite_metrics(data, tmp_path):
+    work = str(tmp_path / "work")
+    state = runner.main(_args(data, work, 2))
+    assert state.step == 2 and state.opt_state.count == 2
+    rows = [json.loads(line) for line in open(os.path.join(work, "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        assert all(np.isfinite(r[k]) for k in ("loss", "contrastive", "caption", "grad_norm"))
+    assert latest_step(os.path.join(work, "checkpoints")) == 2
+
+
+def test_resumed_run_equals_an_unbroken_one(data, tmp_path, capsys):
+    straight = runner.main(_args(data, str(tmp_path / "a"), 4))
+    runner.main(_args(data, str(tmp_path / "b"), 2))
+    capsys.readouterr()
+    resumed = runner.main(_args(data, str(tmp_path / "b"), 4))
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed.step == straight.step == 4
+    assert resumed.opt_state.count == straight.opt_state.count == 4
+    for (name, a), b in zip(straight.params.state_dict().items(),
+                            resumed.params.state_dict().values()):
+        assert torch.equal(a, b), name
+    for a, b in zip(straight.opt_state.mu + straight.opt_state.nu,
+                    resumed.opt_state.mu + resumed.opt_state.nu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert straight.opt_state.mu[0].dtype == torch.bfloat16
+    rows = [json.loads(line) for line in open(tmp_path / "b" / "metrics.jsonl")]
+    ref = [json.loads(line) for line in open(tmp_path / "a" / "metrics.jsonl")]
+    assert [r["step"] for r in rows] == [0, 1, 2, 3]
+    assert [r["loss"] for r in rows] == [r["loss"] for r in ref]
+
+
+@pytest.mark.parametrize("argv,message", [(["--stage", "mae"], "queue A item 3"),
+                                          (["--init-audio-from-mae", "x"], "queue A item 3"),
+                                          (["--init-text-from-hf", "roberta-base"], "HF")])
+def test_unported_options_exit_with_a_message(data, tmp_path, argv, message):
+    with pytest.raises(SystemExit, match=message):
+        runner.main(_args(data, str(tmp_path / "w"), 1) + argv)
+
+
+def _tiny_state(seed=0):
+    cfg = configs.caco_tiny()
+    tc = TrainConfig(warmup_steps=0, total_steps=50)
+    return cfg, tc, init_train_state(caco_init(cfg, torch.Generator().manual_seed(seed)), tc)
+
+
+def _tiny_batch(b=4, s=16, t=8, vocab=128):
+    rs = np.random.RandomState(0)
+    return {
+        "audio_patches": torch.from_numpy(rs.randn(b, s, 256).astype(np.float32)),
+        "audio_time_inds": (torch.arange(s) // 8).repeat(b, 1),
+        "audio_freq_inds": (torch.arange(s) % 8).repeat(b, 1),
+        "audio_mask": torch.ones(b, s, dtype=torch.int32),
+        "text_input_ids": torch.from_numpy(rs.randint(0, vocab, (b, t)).astype(np.int32)),
+        "text_mask": torch.ones(b, t, dtype=torch.int32),
+    }
+
+
+def test_train_state_save_resume(tmp_path):
+    """Two steps, save, one more step directly and one from the reloaded
+    state: identical parameters and moments."""
+    cfg, tc, state = _tiny_state()
+    step = make_caco_train_step(cfg, tc)
+    batch = _tiny_batch()
+    for i in range(2):
+        state, _ = step(state, batch, torch.Generator().manual_seed(i))
+    ckdir = str(tmp_path / "ck")
+    save_train_state(state, ckdir)
+    assert latest_step(ckdir) == 2
+    direct, _ = step(state, batch, torch.Generator().manual_seed(99))
+    resumed = load_train_state(ckdir, _tiny_state(seed=1)[2])
+    assert resumed.step == 2 and resumed.opt_state.count == 2
+    assert resumed.opt_state.mu[0].dtype == torch.bfloat16
+    cont, _ = step(resumed, batch, torch.Generator().manual_seed(99))
+    for a, b in zip(direct.params.parameters(), cont.params.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_pruning_and_latest_step(tmp_path):
+    _, _, state = _tiny_state()
+    ckdir = str(tmp_path / "ck")
+    assert latest_step(ckdir) is None
+    for s in range(5):
+        save_train_state(state._replace(step=s), ckdir, keep=2)
+    assert sorted(os.listdir(ckdir)) == ["step_00000003", "step_00000004"]
+    assert latest_step(ckdir) == 4
+    with pytest.raises(FileNotFoundError):
+        load_train_state(str(tmp_path / "none"), state)
+
+
+def test_metrics_logger(tmp_path, capsys):
+    path = str(tmp_path / "m" / "metrics.jsonl")
+    log = MetricsLogger(path)
+    log.log(step=1, loss=torch.tensor(0.5), lr=1e-4, n=np.int32(3))
+    log.log(step=2, loss=0.4)
+    rows = [json.loads(line) for line in open(path)]
+    assert rows[0]["step"] == 1 and rows[0]["loss"] == 0.5 and rows[0]["n"] == 3
+    assert rows[1]["step"] == 2
+    assert "step=1 loss=0.5" in capsys.readouterr().out
+
+
+def test_stage_timer_and_trace(tmp_path):
+    t = StageTimer()
+    x = torch.ones(8, 8)
+    for _ in range(2):
+        with t.stage("matmul", result_fetch=x):
+            with annotate("mm"):
+                x @ x
+    assert t.counts["matmul"] == 2 and t.totals["matmul"] > 0
+    assert "matmul" in t.report() and "2 calls" in t.report()
+    with trace(str(tmp_path / "trace")):
+        with annotate("region"):
+            x @ x
+    assert "region" in open(tmp_path / "trace" / "trace.json").read()
