@@ -6,8 +6,11 @@ port's module names mirror those keys, so the map is by name: stacked leaves
 under `blocks` are unstacked into the `nn.ModuleList` entries
 (`audio/blocks/ln1/scale[i]` → `audio.blocks.{i}.ln1.scale`).
 
-Every leaf must land on a parameter of the same shape and every parameter
-must be filled; an unknown key raises.  `params_to_jax` is the inverse
+`params_from_jax` builds a `CacoModel` from a CACO tree or, given an
+`AudioMAEConfig`, an `AudioMAE` from a stage-1 tree `{encoder, decoder}`
+(encoder only where the tree has no decoder).  Every leaf must land on a
+parameter of the same shape and every parameter must be filled; an unknown
+key raises.  `params_to_jax` is the inverse
 (blocks stacked again), and `decay_mask` gives the JAX optimizer's weight-
 decay mask, which is taken from the rank of the JAX leaf: a parameter under
 `blocks` has one axis more there than in the port.
@@ -15,13 +18,14 @@ decay mask, which is taken from the rank of the JAX leaf: a parameter under
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from cacophony_tpu_torch.configs import CacoConfig
+from cacophony_tpu_torch.configs import AudioMAEConfig, CacoConfig
+from cacophony_tpu_torch.models.audio import AudioMAE
 from cacophony_tpu_torch.models.caco import CacoModel
 
 
@@ -51,10 +55,14 @@ def jax_state_dict(tree: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(tree: Mapping, cfg: CacoConfig) -> CacoModel:
-    """Build a CacoModel for `cfg` holding exactly the tree's parameters."""
+def params_from_jax(tree: Mapping, cfg: Union[CacoConfig, AudioMAEConfig]):
+    """Build the model for `cfg` (a CacoModel, or an AudioMAE for a stage-1
+    config) holding exactly the tree's parameters."""
     flat = jax_state_dict(tree)
-    model = CacoModel(cfg)
+    if isinstance(cfg, AudioMAEConfig):
+        model = AudioMAE(cfg.encoder, cfg.decoder if "decoder" in tree else None)
+    else:
+        model = CacoModel(cfg)
     state = model.state_dict()
     unknown = sorted(set(flat) - set(state))
     missing = sorted(set(state) - set(flat))

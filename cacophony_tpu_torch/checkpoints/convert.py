@@ -20,8 +20,13 @@ Every function is a pure tree → tree map.  A leaf may be a numpy array or,
 for a bfloat16 checkpoint, a torch tensor (numpy has no bfloat16): it
 becomes fp32 numpy here, which is exact and is what the bridge stores.
 
-The AudioMAE maps and `convert_hf_roberta` are not ported yet (ROADMAP
-queue A item 3 and the HF files).
+The stage-1 AudioMAE file holds `AudioEncoder_0` (the audio tower's
+layout) and `AudioDecoder_0` (the same layer names, `Dense_0` in_proj,
+`restore_patch` mask token, `Dense_1` out_proj); `convert_audiomae_params`
+and `audiomae_params_to_reference` map it both ways, and
+`transplant_audiomae_encoder` starts a CacoModel's audio tower from a
+stage-1 encoder.  `convert_hf_roberta` is not ported yet (it waits for the
+HF files).
 """
 
 from __future__ import annotations
@@ -101,6 +106,19 @@ def convert_audio_encoder(ref: dict) -> dict:
         "blocks": _stack([_audio_block(ref[f"AudioEncoderLayer_{i}"])
                           for i in range(num_layers)]),
         "ln_f": _ln(ref["LayerNorm_0"]),
+    }
+
+
+def convert_audio_decoder(ref: dict) -> dict:
+    num_layers = sum(1 for k in ref if k.startswith("AudioEncoderLayer_"))
+    return {
+        "in_proj": _dense(ref["Dense_0"]),
+        "freq_pos_embed": _np(ref["freq_positional_embedding"]),
+        "mask_token": _np(ref["restore_patch"]),
+        "blocks": _stack([_audio_block(ref[f"AudioEncoderLayer_{i}"])
+                          for i in range(num_layers)]),
+        "ln_f": _ln(ref["LayerNorm_0"]),
+        "out_proj": _dense(ref["Dense_1"]),
     }
 
 
@@ -199,6 +217,14 @@ def convert_caco_params(ref_params: dict) -> dict:
     }
     if "decoder_module" in ref_params:
         out["decoder"] = convert_caption_decoder(ref_params["decoder_module"])
+    return out
+
+
+def convert_audiomae_params(ref_params: dict) -> dict:
+    """Stage-1 AudioMAE tree (`state['0']['params']`) → {encoder, decoder}."""
+    out = {"encoder": convert_audio_encoder(ref_params["AudioEncoder_0"])}
+    if "AudioDecoder_0" in ref_params:
+        out["decoder"] = convert_audio_decoder(ref_params["AudioDecoder_0"])
     return out
 
 
@@ -353,3 +379,39 @@ def caco_params_to_reference(params: dict, audio_num_heads: int) -> dict:
     if "decoder" in params:
         out["decoder_module"] = caption_decoder_to_reference(params["decoder"])
     return out
+
+
+def audio_decoder_to_reference(params: dict, num_heads: int) -> dict:
+    out = {
+        "Dense_0": {"kernel": np.asarray(params["in_proj"]["w"]),
+                    "bias": np.asarray(params["in_proj"]["b"])},
+        "freq_positional_embedding": np.asarray(params["freq_pos_embed"]),
+        "restore_patch": np.asarray(params["mask_token"]),
+        "LayerNorm_0": {"scale": np.asarray(params["ln_f"]["scale"]),
+                        "bias": np.asarray(params["ln_f"]["bias"])},
+        "Dense_1": {"kernel": np.asarray(params["out_proj"]["w"]),
+                    "bias": np.asarray(params["out_proj"]["b"])},
+    }
+    for i, block in enumerate(_unstack(params["blocks"])):
+        out[f"AudioEncoderLayer_{i}"] = _audio_block_to_reference(block, num_heads)
+    return out
+
+
+def audiomae_params_to_reference(params: dict, enc_num_heads: int, dec_num_heads: int) -> dict:
+    """The JAX-layout AudioMAE tree → the released stage-1 layout
+    (`AudioEncoder_0` / `AudioDecoder_0`, reference load_model.py:69)."""
+    out = {"AudioEncoder_0": audio_encoder_to_reference(params["encoder"], enc_num_heads)}
+    if "decoder" in params:
+        out["AudioDecoder_0"] = audio_decoder_to_reference(params["decoder"], dec_num_heads)
+    return out
+
+
+# ------------------------------------------- pretrained-weight transplants
+
+def transplant_audiomae_encoder(caco_model: torch.nn.Module, mae_model: torch.nn.Module):
+    """Start a CacoModel's audio tower from a stage-1 AudioMAE's encoder
+    (reference ast_update_pretrained_parameters, mae.py:227-234): the
+    encoder's parameters are copied into `caco_model.audio` in place, each
+    keeping the CacoModel's device; the rest is left as it is.  → caco_model."""
+    caco_model.audio.load_state_dict(mae_model.encoder.state_dict())
+    return caco_model

@@ -15,7 +15,10 @@ checkpoints and training state in and out (cacophony_tpu/checkpoints/io.py).
   AdamW's `mu` (in its own dtype, bf16 by default) and `nu` in
   `named_parameters()` order, `count` and `step`.
 
-`load_audiomae` and the stage-1 configs wait for ROADMAP queue A item 3.
+- `load_audiomae(path)`: a released-layout stage-1 file (`AudioEncoder_0`,
+  `AudioDecoder_0`) → an `AudioMAE` on the card unless `device="cpu"`, the
+  encoder held to 85.26 M and the decoder to 85.85 M (± 0.01 M); with
+  `cfg=None` both towers' widths are inferred from the shapes.
 """
 
 from __future__ import annotations
@@ -29,13 +32,24 @@ from typing import Optional
 import torch
 
 from cacophony_tpu_torch.checkpoints.bridge import params_from_jax
-from cacophony_tpu_torch.checkpoints.convert import convert_caco_params
+from cacophony_tpu_torch.checkpoints.convert import convert_audiomae_params, convert_caco_params
 from cacophony_tpu_torch.checkpoints.msgpack import restore_checkpoint
-from cacophony_tpu_torch.configs import AudioEncoderConfig, CacoConfig, TextConfig, caco_base
+from cacophony_tpu_torch.configs import (
+    AudioDecoderConfig,
+    AudioEncoderConfig,
+    AudioMAEConfig,
+    CacoConfig,
+    TextConfig,
+    audiomae_base,
+    caco_base,
+)
 from cacophony_tpu_torch.models.caco import CacoModel
 
 # Published parameter counts (reference README.md:59-70), in millions.
 PUBLISHED_PARAM_COUNTS_M = {"audio": 85.26, "text": 125.23, "decoder": 76.46}
+# The stage-1 reconstruction decoder (reference README.md:60): 768-d, 12
+# layers, 3072 MLP give 85,850,368 parameters exactly.
+PUBLISHED_MAE_DECODER_M = 85.85
 
 TRAIN_STATE_FILE = "train_state.pt"
 
@@ -66,6 +80,23 @@ def infer_audio_encoder_config(ref_audio: dict, base: Optional[AudioEncoderConfi
         num_heads=int(heads),
         intermediate_size=int(_shape(layer0["MLP_0"]["Dense_0"]["kernel"])[1]),
         num_freq_patches=int(_shape(ref_audio["freq_positional_embedding"])[0]),
+    )
+
+
+def infer_audio_decoder_config(ref_dec: dict, base: Optional[AudioDecoderConfig] = None,
+                               ) -> AudioDecoderConfig:
+    """Raw stage-1 decoder tree → config (heads from the per-head kernel)."""
+    base = base or AudioDecoderConfig()
+    layer0 = ref_dec["AudioEncoderLayer_0"]
+    _, heads, _ = _shape(layer0["MultiHeadDotProductAttention_0"]["query"]["kernel"])
+    return dataclasses.replace(
+        base,
+        hidden_size=int(_shape(ref_dec["Dense_0"]["kernel"])[1]),
+        num_layers=sum(1 for k in ref_dec if k.startswith("AudioEncoderLayer_")),
+        num_heads=int(heads),
+        intermediate_size=int(_shape(layer0["MLP_0"]["Dense_0"]["kernel"])[1]),
+        patch_size=int(_shape(ref_dec["Dense_1"]["kernel"])[1]),
+        num_freq_patches=int(_shape(ref_dec["freq_positional_embedding"])[0]),
     )
 
 
@@ -127,6 +158,19 @@ def infer_caco_config(ref_params: dict, base: Optional[CacoConfig] = None) -> Ca
     )
 
 
+def infer_audiomae_config(ref_params: dict, base: Optional[AudioMAEConfig] = None,
+                          ) -> AudioMAEConfig:
+    """Raw stage-1 tree (`AudioEncoder_0` / `AudioDecoder_0`) → config; the
+    decoder stays at `base` where the tree has none."""
+    base = base or audiomae_base()
+    out = dataclasses.replace(
+        base, encoder=infer_audio_encoder_config(ref_params["AudioEncoder_0"], base.encoder))
+    if "AudioDecoder_0" in ref_params:
+        out = dataclasses.replace(out, decoder=infer_audio_decoder_config(
+            ref_params["AudioDecoder_0"], base.decoder))
+    return out
+
+
 # --------------------------------------------------- released checkpoints
 
 def _restore_msgpack(path: str):
@@ -170,6 +214,35 @@ def load_caco(ckpt_path: str, cfg: Optional[CacoConfig] = None, *,
     cfg = cfg or infer_caco_config(ref)
     model = params_from_jax(convert_caco_params(ref), cfg)
     _check_counts(model, strict_counts)
+    return cfg, model.to(device)
+
+
+def _check_mae_counts(model):
+    enc_m = count_params(model.encoder) / 1e6
+    if abs(enc_m - PUBLISHED_PARAM_COUNTS_M["audio"]) > 0.01:
+        raise ValueError(f"MAE encoder param count {enc_m:.2f}M != "
+                         f"{PUBLISHED_PARAM_COUNTS_M['audio']}M")
+    if hasattr(model, "decoder"):
+        dec_m = count_params(model.decoder) / 1e6
+        if abs(dec_m - PUBLISHED_MAE_DECODER_M) > 0.01:
+            raise ValueError(f"MAE decoder param count {dec_m:.2f}M != "
+                             f"{PUBLISHED_MAE_DECODER_M}M (reference README.md:60)")
+
+
+def load_audiomae(ckpt_path: str, cfg: Optional[AudioMAEConfig] = None, *,
+                  strict_counts: bool = True, device="cuda"):
+    """Released-layout stage-1 AudioMAE checkpoint → (cfg, AudioMAE on
+    `device`).  With `cfg=None` the encoder's and the decoder's widths are
+    inferred from the checkpoint.  Runs on the card unless device="cpu" is
+    given; without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f'load_audiomae on {device}: no CUDA device; pass device="cpu"')
+    ref = _restore_msgpack(ckpt_path)["0"]["params"]
+    cfg = cfg or infer_audiomae_config(ref)
+    model = params_from_jax(convert_audiomae_params(ref), cfg)
+    if strict_counts:
+        _check_mae_counts(model)
     return cfg, model.to(device)
 
 

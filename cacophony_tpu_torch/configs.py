@@ -4,9 +4,11 @@ The same dataclasses, field names and defaults as `cacophony_tpu.configs`,
 with torch dtypes in place of jnp dtypes.  Canonical model dimensions follow
 the JAX checkpoint loader of the reference (src/caco/load_model.py:23-49).
 
-Left out until their slices are ported: the AudioMAE configs and the
-`flash_attention` switch (the port's audio encoder always takes the JAX
-package's kernel routes at inference; see ops/encoder_attention.py).
+The stage-1 configs (`AudioDecoderConfig`, `AudioMAEConfig`,
+`audiomae_base`) follow cacophony_tpu/configs.py:96-121, :173-198.  Left
+out: the `flash_attention` switch (the port's audio encoder and the MAE
+decoder always take the JAX package's kernel routes at inference, its
+default; see ops/encoder_attention.py).
 """
 
 from __future__ import annotations
@@ -77,6 +79,26 @@ class AudioEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AudioDecoderConfig:
+    """AudioMAE reconstruction decoder (stage 1; reference mae.py:144-188).
+    The defaults give the released stage-1 checkpoint's 85.85 M decoder
+    (768-d, 12 layers, 3072 MLP: 85,850,368 parameters)."""
+
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 8
+    intermediate_size: int = 3072
+    patch_size: int = 256
+    num_freq_patches: int = 8
+    dropout_rate: float = 0.0
+    drop_path_rate: float = 0.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
 class TextConfig:
     """RoBERTa-style text tower (reference roberta_text_model.py:45-65)."""
 
@@ -122,9 +144,28 @@ class CacoConfig:
         return self.audio.hidden_size // self.num_attention_pool_heads
 
 
+@dataclasses.dataclass(frozen=True)
+class AudioMAEConfig:
+    """Stage-1 masked autoencoder: encoder plus reconstruction decoder."""
+
+    encoder: AudioEncoderConfig = dataclasses.field(
+        default_factory=lambda: AudioEncoderConfig(max_time_ind=1000)
+    )
+    decoder: AudioDecoderConfig = dataclasses.field(default_factory=AudioDecoderConfig)
+    mask_ratio: float = 0.8
+    dtype: torch.dtype = torch.float32
+
+
 def caco_base() -> CacoConfig:
     """Canonical config matching the released Cacophony checkpoint."""
     return CacoConfig()
+
+
+def audiomae_base() -> AudioMAEConfig:
+    """Canonical stage-1 AudioMAE config (reference load_model.py:71-84); the
+    decoder's widths come from the published 85.85 M decoder and are
+    inferred again from a checkpoint's shapes when it is loaded."""
+    return AudioMAEConfig()
 
 
 def caco_tiny(vocab_size: int = 128) -> CacoConfig:

@@ -30,8 +30,14 @@ math) while attention dropout is 0, dropout and drop-path from a
 `torch.Generator`, and the `act_dense` MLP tail.
 
 The JAX package computes the MLP and the einsum attention in XLA outside
-any Pallas kernel, so they stay PyTorch products here.  The MAE decoder
-comes with its own slice.
+any Pallas kernel, so they stay PyTorch products here.
+
+The stage-1 AudioMAE (JAX models/audio.py:123-135, :260-319): the
+reconstruction decoder re-projects the encoder's hidden states with
+`in_proj`, adds the same positional scheme, appends a learned mask token
+(plus its positions) for every patch to reconstruct, and runs its layers by
+the encoder's rules on the concatenated length — `layer_route`'s route at
+inference, `vit_block` in training — then `ln_f` and `out_proj`.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from cacophony_tpu_torch.configs import AudioEncoderConfig
+from cacophony_tpu_torch.configs import AudioDecoderConfig, AudioEncoderConfig
 from cacophony_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -93,6 +99,41 @@ class AudioEncoder(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size)
 
 
+class AudioDecoder(nn.Module):
+    """The MAE's reconstruction decoder; `mask_token` is one (hidden,) row."""
+
+    def __init__(self, cfg: AudioDecoderConfig, encoder_hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_proj = Dense(encoder_hidden, cfg.hidden_size, generator)
+        self.freq_pos_embed = nn.Parameter(
+            normal_init((cfg.num_freq_patches, cfg.hidden_size), generator, 0.02))
+        self.mask_token = nn.Parameter(normal_init((cfg.hidden_size,), generator, 0.02))
+        self.blocks = nn.ModuleList(
+            ViTBlock(cfg.hidden_size, cfg.intermediate_size, generator)
+            for _ in range(cfg.num_layers))
+        self.ln_f = LayerNorm(cfg.hidden_size)
+        self.out_proj = Dense(cfg.hidden_size, cfg.patch_size, generator)
+
+
+class AudioMAE(nn.Module):
+    """Stage-1 parameters {encoder, decoder}; without a decoder config the
+    decoder is left out (an encoder-only stage-1 file)."""
+
+    def __init__(self, enc_cfg: AudioEncoderConfig, dec_cfg: Optional[AudioDecoderConfig],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.encoder = AudioEncoder(enc_cfg, generator)
+        if dec_cfg is not None:
+            self.decoder = AudioDecoder(dec_cfg, enc_cfg.hidden_size, generator)
+
+
+def audiomae_init(enc_cfg: AudioEncoderConfig, dec_cfg: AudioDecoderConfig,
+                  generator: torch.Generator) -> AudioMAE:
+    """Random fp32 parameters drawn from `generator` (on the CPU)."""
+    return AudioMAE(enc_cfg, dec_cfg, generator)
+
+
 def _mlp(p: MLP, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Dense → silu → Dense outside the kernels (JAX `_vit_block`:170-172,
     :190-194), the second Dense with `act_dense`'s recomputing backward.
@@ -142,14 +183,38 @@ def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads:
     raise ValueError(f"unknown encoder layer route {route!r}")
 
 
+def _add_positions(x: torch.Tensor, freq_pos_embed: torch.Tensor, time_inds: torch.Tensor,
+                   freq_inds: torch.Tensor) -> torch.Tensor:
+    """x plus the sin-cos time and learned frequency embeddings, in x's dtype."""
+    x = x + sincos_time_embedding(time_inds, x.shape[-1]).to(x.dtype)
+    return x + freq_pos_embed.to(x.dtype)[freq_inds.long()]
+
+
 def audio_input_embedding(p: AudioEncoder, cfg: AudioEncoderConfig, patches: torch.Tensor,
                           time_inds: torch.Tensor, freq_inds: torch.Tensor,
                           dtype: torch.dtype) -> torch.Tensor:
     """The first layer's input: the patch projection plus the sin-cos time
     and learned frequency embeddings, in `dtype`."""
-    x = dense(p.patch_proj, patches.to(dtype), dtype)
-    x = x + sincos_time_embedding(time_inds, cfg.hidden_size).to(x.dtype)
-    return x + p.freq_pos_embed.to(x.dtype)[freq_inds.long()]
+    return _add_positions(dense(p.patch_proj, patches.to(dtype), dtype), p.freq_pos_embed,
+                          time_inds, freq_inds)
+
+
+def _run_blocks(blocks: nn.ModuleList, cfg, x: torch.Tensor, mask: torch.Tensor,
+               dtype: torch.dtype, train: bool,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A layer stack by the encoder's rules (JAX `_run_blocks`): inference
+    takes `layer_route`'s route for x's length and cfg's widths; training
+    runs `vit_block` on every layer, its dropout masks from `generator`."""
+    route = None if train else ea.layer_route(x.shape[1], cfg.hidden_size,
+                                              cfg.intermediate_size, dtype)[0]
+    for blk in blocks:
+        if train:
+            x = vit_block(blk, x, mask, cfg.num_heads, dtype, train=True,
+                          dropout_rate=cfg.dropout_rate, drop_path_rate=cfg.drop_path_rate,
+                          generator=generator)
+        else:
+            x = encoder_layer(blk, x, mask, cfg.num_heads, route, dtype)
+    return x
 
 
 def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
@@ -163,13 +228,53 @@ def audio_encoder_apply(p: AudioEncoder, cfg: AudioEncoderConfig,
     Inference takes `layer_route`'s route per layer; training (`train=True`,
     dropout masks from `generator`) runs `vit_block` on every layer."""
     x = audio_input_embedding(p, cfg, patches, time_inds, freq_inds, dtype)
-    route = None if train else ea.layer_route(x.shape[1], cfg.hidden_size,
-                                              cfg.intermediate_size, dtype)[0]
-    for blk in p.blocks:
-        if train:
-            x = vit_block(blk, x, mask, cfg.num_heads, dtype, train=True,
-                          dropout_rate=cfg.dropout_rate, drop_path_rate=cfg.drop_path_rate,
-                          generator=generator)
-        else:
-            x = encoder_layer(blk, x, mask, cfg.num_heads, route, dtype)
+    x = _run_blocks(p.blocks, cfg, x, mask, dtype, train, generator)
     return layer_norm(p.ln_f, x, LN_EPS)
+
+
+def audio_decoder_input(p: AudioDecoder, hidden: torch.Tensor, mask: torch.Tensor,
+                        time_inds: torch.Tensor, freq_inds: torch.Tensor,
+                        restore_time_inds: torch.Tensor, restore_freq_inds: torch.Tensor,
+                        restore_mask: torch.Tensor, dtype: torch.dtype):
+    """The decoder's first layer input and its mask: [in_proj(hidden) +
+    positions, mask token + the restore set's positions] in `dtype`, under
+    [mask, restore_mask]."""
+    x = _add_positions(dense(p.in_proj, hidden.to(dtype), dtype), p.freq_pos_embed,
+                       time_inds, freq_inds)
+    xm = _add_positions(p.mask_token.to(x.dtype)[None, None, :], p.freq_pos_embed,
+                        restore_time_inds, restore_freq_inds)
+    return torch.cat([x, xm], dim=1), torch.cat([mask, restore_mask], dim=1)
+
+
+def audio_decoder_apply(p: AudioDecoder, cfg: AudioDecoderConfig,
+                        hidden: torch.Tensor,             # (B, S_vis, enc_hidden)
+                        mask: torch.Tensor,               # (B, S_vis)
+                        time_inds: torch.Tensor, freq_inds: torch.Tensor,
+                        restore_time_inds: torch.Tensor,  # (B, S_masked)
+                        restore_freq_inds: torch.Tensor,
+                        restore_mask: torch.Tensor,
+                        *, dtype: torch.dtype = torch.float32, train: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """→ reconstructed patches (B, S_vis + S_masked, patch_size) in `dtype`.
+    Reference: mae.py:148-188.  The layers' route is decided on the
+    concatenated length, under the combined mask [mask, restore_mask]."""
+    x, full_mask = audio_decoder_input(p, hidden, mask, time_inds, freq_inds, restore_time_inds,
+                                       restore_freq_inds, restore_mask, dtype)
+    x = _run_blocks(p.blocks, cfg, x, full_mask, dtype, train, generator)
+    return dense(p.out_proj, layer_norm(p.ln_f, x, LN_EPS), dtype)
+
+
+def audiomae_apply(p: AudioMAE, enc_cfg: AudioEncoderConfig, dec_cfg: AudioDecoderConfig,
+                   patches: torch.Tensor, mask: torch.Tensor, time_inds: torch.Tensor,
+                   freq_inds: torch.Tensor, restore_time_inds: torch.Tensor,
+                   restore_freq_inds: torch.Tensor, restore_mask: torch.Tensor, *,
+                   dtype: torch.dtype = torch.float32, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stage-1 reconstruction forward (reference mae.py:190-225): the encoder
+    over the visible patches, then the decoder; in training both draw their
+    dropout masks from `generator`, the encoder first."""
+    h = audio_encoder_apply(p.encoder, enc_cfg, patches, time_inds, freq_inds, mask,
+                            dtype=dtype, train=train, generator=generator)
+    return audio_decoder_apply(p.decoder, dec_cfg, h, mask, time_inds, freq_inds,
+                               restore_time_inds, restore_freq_inds, restore_mask,
+                               dtype=dtype, train=train, generator=generator)

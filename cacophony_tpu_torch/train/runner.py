@@ -1,8 +1,11 @@
-"""Training runner CLI: stage-2 (CACO) training on one device
-(cacophony_tpu/train/runner.py:47-211).
+"""Training runner CLI: stage-2 (CACO) or stage-1 (MAE) training on one
+device (cacophony_tpu/train/runner.py:47-211).
 
     python -m cacophony_tpu_torch.train.runner --stage caco --data-dir DIR \
-        --workdir WORK --tokenizer TOKDIR [--device cpu] [--dtype bfloat16]
+        --workdir WORK --tokenizer TOKDIR [--device cpu] [--dtype bfloat16] \
+        [--init-audio-from-mae STAGE1_FILE]
+    python -m cacophony_tpu_torch.train.runner --stage mae --data-dir DIR \
+        --workdir WORK [--device cpu] [--dtype bfloat16]
 
 Data layout: DIR holds wavs (any depth) and `captions.csv` with columns
 (file_name, caption), several rows per file allowed, and optionally
@@ -17,12 +20,18 @@ Step i draws its patch subset and dropout masks from a generator seeded by
 batches already trained on without decoding them: a resumed run draws what
 an unbroken run draws.  `--total-steps` (default `--steps`) is the length
 of the learning-rate schedule, so a run may stop early and resume on the
-same schedule.  `--dtype` is the compute dtype (the JAX runner trains in
-fp32; bf16 runs K7 as K4's backward at 500 patches).
+same schedule.  `--dtype` is the compute dtype of either stage (the JAX
+runner trains in fp32; bf16 runs K7 as K4's backward at 500 patches).
 
-Not ported yet: `--stage mae` and `--init-audio-from-mae` (ROADMAP queue A
-item 3), `--init-text-from-hf` (needs the HF files), the mesh (`--dp`,
-`--tp`; queue A item 7).
+`--stage mae` needs no captions: every wav gets a dummy caption and a
+dummy tokenizer, the batch is the training frontend's alone, and the model
+is `audiomae_base()` (`--tiny-model`: a 32-wide, 2-layer, 2-head encoder
+and decoder with a 64-wide MLP).  `--init-audio-from-mae` starts stage 2's
+audio tower from a stage-1 file's encoder (`load_audiomae`, the published
+count guards on unless `--tiny-model`).
+
+Not ported yet: `--init-text-from-hf` (needs the HF files), the mesh
+(`--dp`, `--tp`; queue A item 7).
 """
 
 from __future__ import annotations
@@ -36,10 +45,17 @@ import os
 import sys
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from cacophony_tpu_torch import configs
-from cacophony_tpu_torch.checkpoints.io import latest_step, load_train_state, save_train_state
+from cacophony_tpu_torch.checkpoints.convert import transplant_audiomae_encoder
+from cacophony_tpu_torch.checkpoints.io import (
+    latest_step,
+    load_audiomae,
+    load_train_state,
+    save_train_state,
+)
 from cacophony_tpu_torch.configs import FrontendConfig, PatchConfig
 from cacophony_tpu_torch.data.pipeline import (
     CacoTrainLoader,
@@ -49,8 +65,14 @@ from cacophony_tpu_torch.data.pipeline import (
 )
 from cacophony_tpu_torch.data.tokenizer import load_tokenizer
 from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
+from cacophony_tpu_torch.models.audio import audiomae_init
 from cacophony_tpu_torch.models.caco import caco_init
-from cacophony_tpu_torch.train.train import TrainConfig, init_train_state, make_caco_train_step
+from cacophony_tpu_torch.train.train import (
+    TrainConfig,
+    init_train_state,
+    make_caco_train_step,
+    make_mae_train_step,
+)
 from cacophony_tpu_torch.utils import MetricsLogger
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -101,11 +123,26 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
+class _DummyTok:
+    """The MAE stage's tokenizer: every caption becomes ones."""
+
+    bos_token_id, eos_token_id, pad_token_id = 0, 2, 1
+
+    def __call__(self, texts, **kw):
+        shape = (len(texts), kw.get("max_length", 8))
+        return {"input_ids": np.ones(shape, np.int32), "attention_mask": np.ones(shape, np.int32)}
+
+
+def _tiny_mae() -> configs.AudioMAEConfig:
+    enc = configs.AudioEncoderConfig(hidden_size=32, num_layers=2, num_heads=2,
+                                     intermediate_size=64)
+    dec = configs.AudioDecoderConfig(hidden_size=32, num_layers=2, num_heads=2,
+                                     intermediate_size=64)
+    return configs.AudioMAEConfig(encoder=enc, decoder=dec)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.stage == "mae" or args.init_audio_from_mae:
-        sys.exit("the MAE stage (--stage mae, --init-audio-from-mae) is not ported yet: it "
-                 "waits for ROADMAP queue A item 3")
     if args.init_text_from_hf:
         sys.exit("--init-text-from-hf is not ported yet: it waits for the HF roberta files")
     device = torch.device(args.device)
@@ -114,6 +151,7 @@ def main(argv=None):
     os.makedirs(args.workdir, exist_ok=True)
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
                      total_steps=args.total_steps or args.steps)
+    caco = args.stage == "caco"
 
     # ---- data
     wavs = sorted(glob.glob(os.path.join(args.data_dir, "**", "*.wav"), recursive=True))
@@ -121,9 +159,11 @@ def main(argv=None):
         raise FileNotFoundError(f"no wavs under {args.data_dir}")
     captions = _read_captions(os.path.join(args.data_dir, "captions.csv"))
     synthetic = _read_captions(os.path.join(args.data_dir, "synthetic_captions.csv"))
-    if not captions:
+    if caco and not captions:
         raise FileNotFoundError("stage caco needs captions.csv")
-    tokenizer = load_tokenizer(args.tokenizer)
+    if not caco:  # MAE needs no captions: a dummy entry for every wav
+        captions = {os.path.basename(w).split(".wav")[0]: ["-"] for w in wavs}
+    tokenizer = load_tokenizer(args.tokenizer) if caco else _DummyTok()
     dcfg = TrainDataConfig(batch_size=args.batch_size, buffer_seconds=args.buffer_seconds,
                            seed=args.seed)
     loader = CacoTrainLoader([w for w in wavs if os.path.basename(w).split(".wav")[0] in captions],
@@ -135,11 +175,24 @@ def main(argv=None):
     full_seq = num_patches_for_samples(buffer_samples, front, PatchConfig())
     full_patch = PatchConfig(patches_seq_len=max(full_seq, args.patches_seq_len))
     frontend = device_train_frontend(front, full_patch, args.patches_seq_len)
-    cfg = (configs.caco_tiny(vocab_size=max(300, getattr(tokenizer, "vocab_size", 0) or 0))
-           if args.tiny_model else configs.caco_base())
-    cfg = dataclasses.replace(cfg, dtype=_DTYPES[args.dtype])
-    model = caco_init(cfg, torch.Generator().manual_seed(args.seed)).to(device)
-    step_fn = make_caco_train_step(cfg, tc)
+    gen0 = torch.Generator().manual_seed(args.seed)
+    dtype = _DTYPES[args.dtype]
+    if caco:
+        cfg = (configs.caco_tiny(vocab_size=max(300, getattr(tokenizer, "vocab_size", 0) or 0))
+               if args.tiny_model else configs.caco_base())
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        model = caco_init(cfg, gen0).to(device)
+        if args.init_audio_from_mae:
+            _, mae = load_audiomae(args.init_audio_from_mae, strict_counts=not args.tiny_model,
+                                   device=device)
+            transplant_audiomae_encoder(model, mae)
+            del mae
+        step_fn = make_caco_train_step(cfg, tc)
+    else:
+        cfg = dataclasses.replace(_tiny_mae() if args.tiny_model else configs.audiomae_base(),
+                                  dtype=dtype)
+        model = audiomae_init(cfg.encoder, cfg.decoder, gen0).to(device)
+        step_fn = make_mae_train_step(cfg, tc)
 
     # ---- state (+ resume)
     state = init_train_state(model, tc)
@@ -154,7 +207,8 @@ def main(argv=None):
     for step_i, host in enumerate(prefetch_to_device(batches, size=2, device=device), start):
         gen = step_generator(args.seed, step_i, device)
         batch = frontend(gen, host["audio_bufs"], host["audio_lens"])
-        batch["text_input_ids"], batch["text_mask"] = host["text_input_ids"], host["text_mask"]
+        if caco:
+            batch["text_input_ids"], batch["text_mask"] = host["text_input_ids"], host["text_mask"]
         state, metrics = step_fn(state, batch, gen)
         if step_i % args.log_every == 0:
             metrics_log.log(step=step_i, **{k: float(v) for k, v in metrics.items()})

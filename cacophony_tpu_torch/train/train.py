@@ -1,8 +1,15 @@
-"""The stage-2 (CACO) training step (cacophony_tpu/train/train.py:36-190).
+"""The training steps of both stages (cacophony_tpu/train/train.py:36-255).
 
-    step = make_caco_train_step(cfg, tc)
+    step = make_caco_train_step(cfg, tc)     # stage 2, a CacoModel
+    step = make_mae_train_step(mae_cfg, tc)  # stage 1, an AudioMAE
     state = init_train_state(model, tc)
     state, metrics = step(state, batch, generator)
+
+Stage 1 masks a patch grid (`mae_random_masking`: the visible set goes
+through the encoder, the masked positions to the decoder's restore set) and
+takes the reconstruction MSE over the masked patches that are not padding;
+`metrics` holds `loss` and `grad_norm`.  The masking noise is drawn by
+`mae_noise` from the step's generator, then the dropout masks, in order.
 
 Loss = symmetric contrastive + `caption_loss_weight` × teacher-forced
 caption cross-entropy; the caption branch reuses the text tower's hidden
@@ -42,10 +49,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from cacophony_tpu_torch.checkpoints.bridge import decay_mask
-from cacophony_tpu_torch.configs import CacoConfig
-from cacophony_tpu_torch.models.caco import CacoModel, get_audio_embedding, get_text_embedding
+from cacophony_tpu_torch.configs import AudioMAEConfig, CacoConfig
+from cacophony_tpu_torch.models.audio import audiomae_apply
+from cacophony_tpu_torch.models.caco import get_audio_embedding, get_text_embedding
 from cacophony_tpu_torch.models.text import caption_decoder_apply
-from cacophony_tpu_torch.train.losses import caption_cross_entropy, clip_contrastive_loss
+from cacophony_tpu_torch.train.losses import (
+    caption_cross_entropy,
+    clip_contrastive_loss,
+    mae_reconstruction_loss,
+)
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -142,12 +154,12 @@ def make_optimizer(tc: TrainConfig) -> AdamW:
 
 
 class TrainState(NamedTuple):
-    params: CacoModel
+    params: torch.nn.Module  # a CacoModel or an AudioMAE
     opt_state: AdamWState
     step: int
 
 
-def init_train_state(params: CacoModel, tc: TrainConfig) -> TrainState:
+def init_train_state(params: torch.nn.Module, tc: TrainConfig) -> TrainState:
     return TrainState(params, make_optimizer(tc).init(params), 0)
 
 
@@ -186,7 +198,7 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig):
             generator.set_state(end[0])
         return out
 
-    def loss_fn(model: CacoModel, batch: Dict[str, torch.Tensor],
+    def loss_fn(model, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator]):
         a_emb, a_hidden = audio(model, batch, generator)
         ids, tmask = batch["text_input_ids"], batch["text_mask"]
@@ -203,16 +215,14 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig):
     return loss_fn
 
 
-def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig):
-    """→ step(state, batch, generator) → (state, metrics).  batch:
-    audio_patches / audio_time_inds / audio_freq_inds / audio_mask and
-    text_input_ids / text_mask, on the parameters' device."""
+def _make_step(loss_fn, tc: TrainConfig):
+    """→ step(state, batch, generator) → (state, metrics): loss_fn's
+    gradients, their global norm, one AdamW update in place."""
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     opt = make_optimizer(tc)
-    loss_fn = make_caco_loss(cfg, tc)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]):
@@ -230,3 +240,78 @@ def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig):
         return TrainState(model, opt_state, state.step + 1), metrics
 
     return step
+
+
+def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig):
+    """→ step(state, batch, generator) → (state, metrics).  batch:
+    audio_patches / audio_time_inds / audio_freq_inds / audio_mask and
+    text_input_ids / text_mask, on the parameters' device."""
+    return _make_step(make_caco_loss(cfg, tc), tc)
+
+
+# --------------------------------------------------------------- stage 1
+
+def mae_noise(generator: Optional[torch.Generator], mask: torch.Tensor) -> torch.Tensor:
+    """The masking noise: U[0, 1) of the patch grid's (B, S) shape, from
+    `generator` on the mask's device."""
+    return torch.rand(mask.shape, generator=generator, device=mask.device)
+
+
+def mae_random_masking(noise: torch.Tensor, patch_batch: Dict[str, torch.Tensor],
+                       mask_ratio: float) -> Dict[str, torch.Tensor]:
+    """Split a patch grid into the visible and the masked set by the
+    argsorted noise (JAX `mae_random_masking`, train.py:195-225): padding
+    gets noise + 1, so the visible set is real patches first; the first
+    n_keep = round(S·(1 − ratio)) of the stable order are kept, the rest go
+    to the decoder's restore set with their (time, freq) indices.
+    `target_patches` is [keep, drop] and `loss_mask` [0 … 0, restore mask]."""
+    x = patch_batch["audio_patches"]
+    b, s, _ = x.shape
+    n_keep = max(1, int(round(s * (1.0 - mask_ratio))))
+    noise = torch.where(patch_batch["audio_mask"] > 0, noise, noise + 1.0)
+    order = torch.argsort(noise, dim=1, stable=True)
+    keep, drop = order[:, :n_keep], order[:, n_keep:]
+
+    def take(a, idx):
+        return torch.take_along_dim(a, idx[..., None] if a.dim() == 3 else idx, dim=1)
+
+    kept, dropped = take(x, keep), take(x, drop)
+    restore_mask = take(patch_batch["audio_mask"], drop)
+    return {
+        "patches": kept,
+        "time_inds": take(patch_batch["audio_time_inds"], keep),
+        "freq_inds": take(patch_batch["audio_freq_inds"], keep),
+        "mask": take(patch_batch["audio_mask"], keep),
+        "restore_time_inds": take(patch_batch["audio_time_inds"], drop),
+        "restore_freq_inds": take(patch_batch["audio_freq_inds"], drop),
+        "restore_mask": restore_mask,
+        "target_patches": torch.cat([kept, dropped], dim=1),
+        "loss_mask": torch.cat([torch.zeros((b, n_keep), dtype=torch.int32, device=x.device),
+                                restore_mask.to(torch.int32)], dim=1),
+    }
+
+
+def make_mae_loss(cfg: AudioMAEConfig, tc: TrainConfig):
+    """→ loss_fn(model, batch, generator) → (loss, metrics): the stage-1
+    objective of `make_mae_train_step` without the optimizer.  The loss
+    keeps JAX's type promotion: a bf16 reconstruction minus the fp32 target
+    is fp32."""
+
+    def loss_fn(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        m = mae_random_masking(mae_noise(generator, batch["audio_mask"]), batch,
+                               cfg.mask_ratio)
+        pred = audiomae_apply(model, cfg.encoder, cfg.decoder, m["patches"], m["mask"],
+                              m["time_inds"], m["freq_inds"], m["restore_time_inds"],
+                              m["restore_freq_inds"], m["restore_mask"], dtype=cfg.dtype,
+                              train=True, generator=generator)
+        loss = mae_reconstruction_loss(pred, m["target_patches"], m["loss_mask"])
+        return loss, {"loss": loss}
+
+    return loss_fn
+
+
+def make_mae_train_step(cfg: AudioMAEConfig, tc: TrainConfig):
+    """Stage-1 masked-reconstruction step → step(state, batch, generator) →
+    (state, metrics).  batch: audio_patches / audio_time_inds /
+    audio_freq_inds / audio_mask, on the parameters' device."""
+    return _make_step(make_mae_loss(cfg, tc), tc)

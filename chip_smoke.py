@@ -112,9 +112,30 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    with `remat_encoder=True` and one without, from the same parameters and
    generator state: equal losses, gradients within the bf16 chain bound,
    K4 24 and 12 times.  The temporary directories are deleted.
+15. stage 1, the AudioMAE at audiomae_base (random weights from the seed):
+   (a) the reconstruction forward at bench.py's shape: B=64 10-s buffers
+   of 0.1·randn at 500 patches, the last clip 1.5 s (padding inside its
+   visible set), mask 0.8 by `mae_random_masking`: the encoder at 100
+   patches and the decoder at 500 take `layer_route`'s routes (bf16: K1 24
+   times a forward; fp32: K1 12 and K2 12); K1 (S=100 bf16 and fp32, S=500
+   bf16), K2 (S=500 fp32), K4 and K7 (B=16 at S=100 and 500; fp32 K7 at 100
+   only) against their plain versions on the first layer's real inputs;
+   `mae_recon_clips_per_s`, the median of 5 bf16 forwards; min cosine over
+   patch rows, fp32 card vs the CPU's plain path at B=2 (>= 0.9999) and
+   bf16 vs fp32 on the card (>= 0.999); (b) the stage-1 step, B=16, 500
+   patches: bf16 4 steps under one masking (K4 and K7 24 times a step, the
+   loss falls), fp32 (K4 24, K7 12: the decoder's 500 patches fail fp32's
+   `bwd_fits_vmem`), step times, peak memory, and fp32 loss and gradients
+   at B=2 against the CPU (1e-5, 1e-4); (c) (a)'s model written as a
+   released-layout stage-1 file and read back with `load_audiomae` (strict
+   counts, config inferred == audiomae_base()), its bf16 reconstruction
+   bit-identical to (a)'s; `runner --stage mae` for 2 steps and `runner
+   --stage caco --init-audio-from-mae` for 1 on phase 14b's files (the
+   audio tower equals the file's encoder after step 0, whose rate is 0).
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
-entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′); the last line is
+entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′; `mae_launches` counts
+phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -123,6 +144,7 @@ It needs a CUDA device and never imports JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import dataclasses
 import io
@@ -145,11 +167,24 @@ from cacophony_tpu_torch.data import pipeline
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
 from cacophony_tpu_torch.frontend import fused
-from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples, patchify_spectrogram
+from cacophony_tpu_torch.frontend.patchify import (
+    num_patches_for_samples,
+    patchify_spectrogram,
+    wav_to_patches,
+)
 from cacophony_tpu_torch.models import caco
-from cacophony_tpu_torch.models.audio import LN_EPS, ViTBlock, audio_input_embedding, encoder_layer
+from cacophony_tpu_torch.models.audio import (
+    LN_EPS,
+    ViTBlock,
+    audio_decoder_input,
+    audio_encoder_apply,
+    audio_input_embedding,
+    audiomae_apply,
+    audiomae_init,
+    encoder_layer,
+)
 from cacophony_tpu_torch.models.caco import caco_init, get_audio_embedding
-from cacophony_tpu_torch.models.layers import layer_norm
+from cacophony_tpu_torch.models.layers import dense, layer_norm
 from cacophony_tpu_torch.native import wavio
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
@@ -750,9 +785,20 @@ def head_dim_checks(gen):
 
 
 def train_batch(cfg, rs, b: int, seconds: int, seq_len: int):
-    """A stage-2 batch on the card: synthetic clips of 3 s to `seconds` s
-    through `device_train_frontend` (every patch of the buffer, then a
-    sorted random subset of seq_len), and token ids of 8-100 tokens."""
+    """A stage-2 batch on the card: `audio_batch`'s patches and token ids
+    of 8-100 tokens."""
+    batch = audio_batch(rs, b, seconds, seq_len)
+    tmask = (np.arange(TEXT_LEN)[None] < rs.randint(8, TEXT_LEN + 1, size=b)[:, None]).astype(np.int32)
+    ids = np.where(tmask > 0, rs.randint(4, cfg.text.vocab_size, size=(b, TEXT_LEN)), 1)
+    batch["text_input_ids"] = torch.from_numpy(ids.astype(np.int32)).to(DEVICE)
+    batch["text_mask"] = torch.from_numpy(tmask).to(DEVICE)
+    return batch
+
+
+def audio_batch(rs, b: int, seconds: int, seq_len: int):
+    """A training patch batch on the card: synthetic clips of 3 s to
+    `seconds` s through `device_train_frontend` (every patch of the buffer,
+    then a sorted random subset of seq_len)."""
     front = configs.FrontendConfig()
     samples = seconds * front.sample_rate
     lens = rs.randint(3 * front.sample_rate, samples + 1, size=b).astype(np.int32)
@@ -764,10 +810,6 @@ def train_batch(cfg, rs, b: int, seconds: int, seq_len: int):
                                      seq_len)
     batch = frontend(torch.Generator(device=DEVICE).manual_seed(SEED),
                      torch.from_numpy(bufs).to(DEVICE), torch.from_numpy(lens).to(DEVICE))
-    tmask = (np.arange(TEXT_LEN)[None] < rs.randint(8, TEXT_LEN + 1, size=b)[:, None]).astype(np.int32)
-    ids = np.where(tmask > 0, rs.randint(4, cfg.text.vocab_size, size=(b, TEXT_LEN)), 1)
-    batch["text_input_ids"] = torch.from_numpy(ids.astype(np.int32)).to(DEVICE)
-    batch["text_mask"] = torch.from_numpy(tmask).to(DEVICE)
     check(batch["audio_patches"].shape == (b, seq_len, 256), f"patch batch {batch['audio_patches'].shape}")
     return batch
 
@@ -1537,16 +1579,14 @@ def run_main(argv):
     return state, out
 
 
-def runner_phase(cfg, rs, label):
+def runner_phase(cfg, label, tmp, data, tok):
     """Phase 14b: the stage-2 runner from audio files on the card, then a
-    resumed run."""
+    resumed run; its work directory under `tmp` is deleted."""
     n = cfg.audio.num_layers
     print(f"phase 14b: train.runner --stage caco at caco_base, bf16, B={TRAIN_BATCH}, 500 patches, "
           f"{RUNNER_CLIPS} clips")
-    tmp = tempfile.mkdtemp(prefix="caco_smoke_runner_")
+    work = os.path.join(tmp, "work")
     try:
-        data, tok = write_runner_data(tmp, rs)
-        work = os.path.join(tmp, "work")
         argv = ["--stage", "caco", "--data-dir", data, "--workdir", work, "--tokenizer", tok,
                 "--batch-size", str(TRAIN_BATCH), "--buffer-seconds", "10",
                 "--patches-seq-len", "500", "--total-steps", str(RUNNER_RESUMED_STEPS),
@@ -1616,7 +1656,7 @@ def runner_phase(cfg, rs, label):
               f"native {['%.1f' % v for v in native_ms]} ms, with the resample "
               f"{['%.1f' % v for v in decode_ms]} ms")
     finally:
-        shutil.rmtree(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return got, got2, {"decoded": first, "decoded_resumed": second, "loss": losses,
                        "step_ms": intervals, "median_step_ms": float(np.median(ms)),
                        "host_native_decode_ms": native_ms, "host_decode_ms": decode_ms}
@@ -1657,6 +1697,319 @@ def remat_phase(cfg, rs):
     check(worst <= atol, "remat changes the gradients past the bf16 chain bound")
     del model
     return got, {"loss": [l_r, l_p], "grad_excess": worst, "grad_rel_l2": rel}
+
+
+# Stage 1 (phase 15).  bench.py's reconstruction shape: B=64 10-s buffers at
+# 500 patches, mask ratio 0.8 (100 visible, 400 to reconstruct); the
+# training step at B=16; the fp32 reconstruction against the CPU at B=2.
+MAE_BATCH, MAE_TRAIN_BATCH, MAE_STEPS, MAE_TIMED = 64, 16, 4, 5
+MAE_SHORT_SAMPLES = 24_000  # 1.5 s: 72 valid patches, fewer than the 100 visible
+MAE_ARGS = ("patches", "mask", "time_inds", "freq_inds", "restore_time_inds",
+            "restore_freq_inds", "restore_mask")
+# The fp32 reconstruction on the card against the CPU's plain path, and bf16
+# against fp32 on the card: min cosine over the reconstructed patch rows
+# (PERF.md §2, the fp32 and bf16 agreement bounds of the serving path).
+COS_MAE = {torch.float32: 0.9999, torch.bfloat16: 0.999}
+
+
+def mae_grid(rs):
+    """bench.py's input: MAE_BATCH 10-s buffers of 0.1·randn at 500 patches
+    (496 valid), the last clip cut to 1.5 s, so that padding lies inside
+    its visible set; masked with ratio 0.8 by the port's masking."""
+    front, samples = configs.FrontendConfig(), 10 * 16000
+    bufs = (0.1 * rs.randn(MAE_BATCH, samples)).astype(np.float32)
+    lens = np.full(MAE_BATCH, samples, np.int32)
+    lens[-1] = MAE_SHORT_SAMPLES
+    bufs[-1, MAE_SHORT_SAMPLES:] = 0.0
+    grid = wav_to_patches(torch.from_numpy(bufs).to(DEVICE), torch.from_numpy(lens).to(DEVICE),
+                          front, configs.PatchConfig(patches_seq_len=500))
+    noise = train.mae_noise(torch.Generator(device=DEVICE).manual_seed(SEED), grid["audio_mask"])
+    return train.mae_random_masking(noise, grid, configs.audiomae_base().mask_ratio)
+
+
+def row_cosines(a, b):
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return F.cosine_similarity(a, b.to(a.device), dim=-1)
+
+
+@torch.inference_mode()
+def mae_kernel_checks(model, cfg, m):
+    """K1, K2, K4 and K7 against their plain versions at phase 15's shapes,
+    on the first layer's real inputs: K1 at the encoder's 100 patches (bf16,
+    fp32) and the decoder's 500 (bf16), K2 at the decoder's 500 (fp32), K4
+    and K7 at the training batch's B=16 in both towers (K7 where
+    `bwd_fits_vmem` holds: fp32 only at 100)."""
+    enc, dec = cfg.encoder, cfg.decoder
+    gen = torch.Generator().manual_seed(SEED + 15)
+    errs = {}
+
+    def keep(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = _dt_name(dt)
+        x = audio_input_embedding(model.encoder, enc, m["patches"], m["time_inds"],
+                                  m["freq_inds"], dt)
+        blk = model.encoder.blocks[0]
+        keep("K1", compare(f"K1 {name} S=100 (encoder layer 0)",
+                           ea.fused_layer(blk, x, m["mask"], enc.num_heads, LN_EPS),
+                           ea.fused_layer_plain(blk, x, m["mask"], enc.num_heads, LN_EPS),
+                           *TOL[dt]["chain"]))
+        h = audio_encoder_apply(model.encoder, enc, m["patches"], m["time_inds"], m["freq_inds"],
+                                m["mask"], dtype=dt)
+        xd, full = audio_decoder_input(model.decoder, h, *(m[k] for k in MAE_ARGS[1:]), dt)
+        dblk = model.decoder.blocks[0]
+        if dt == torch.bfloat16:
+            keep("K1", compare(f"K1 {name} S=500 (decoder layer 0)",
+                               ea.fused_layer(dblk, xd, full, dec.num_heads, LN_EPS),
+                               ea.fused_layer_plain(dblk, xd, full, dec.num_heads, LN_EPS),
+                               *TOL[dt]["chain"]))
+        else:
+            got = ea.fused_block_attention(dblk, xd, full, dec.num_heads, LN_EPS, ("one_shot",))
+            ref = ea.fused_block_attention_plain(dblk, xd, full, dec.num_heads, LN_EPS,
+                                                 ("one_shot",))
+            for part, a, b in zip(("y", "LN2 y"), got, ref):
+                keep("K2", compare(f"K2 {name} S=500 (decoder layer 0) {part}", a, b,
+                                   *TOL[dt]["chain"]))
+        for tower, layer, xs, mask in (("encoder", blk, x, m["mask"]), ("decoder", dblk, xd, full)):
+            xs, mask = xs[:MAE_TRAIN_BATCH], mask[:MAE_TRAIN_BATCH].contiguous()
+            s = xs.shape[1]
+            qkv = dense(layer.attn.qkv, layer_norm(layer.ln1, xs, LN_EPS), dt).contiguous()
+            keep("K4", compare(f"K4 {name} S={s} ({tower} layer 0)",
+                               kern.attention_k4(qkv, mask, H), kern.attention_plain(qkv, mask, H),
+                               *TOL[dt]["kernel"]))
+            if ea.bwd_fits_vmem(s, D, dt):
+                g = torch.randn(xs.shape[0], s, D, generator=gen).to(DEVICE, dt)
+                keep("K7", compare(f"K7 {name} S={s} ({tower} layer 0)",
+                                   kern.attention_bwd(qkv, mask, g, H),
+                                   kern.attention_bwd_plain(qkv, mask, g, H), *TOL[dt]["k7"]))
+    return errs
+
+
+def mae_recon_phase(rs, label):
+    """Phase 15a: the stage-1 reconstruction forward at audiomae_base (random
+    weights from the seed), bench.py's shape, bf16 and fp32."""
+    cfg = configs.audiomae_base()
+    enc, dec = cfg.encoder, cfg.decoder
+    cpu_model = audiomae_init(enc, dec, torch.Generator().manual_seed(SEED))
+    model = copy.deepcopy(cpu_model).to(DEVICE)
+    m = mae_grid(rs)
+    s_vis, s_all = m["patches"].shape[1], m["target_patches"].shape[1]
+    print(f"phase 15a: AudioMAE reconstruction, audiomae_base, B={MAE_BATCH} 10-s buffers, "
+          f"{s_all} patches, mask {cfg.mask_ratio}: encoder S={s_vis}, decoder S={s_all}")
+    check((s_vis, s_all) == (100, 500), f"visible / decoder lengths {s_vis} / {s_all}")
+    short_visible = int(m["mask"][-1].sum())
+    check(0 < short_visible < s_vis, f"the short clip has {short_visible} visible patches")
+    routes = {dt: (ea.layer_route(s_vis, enc.hidden_size, enc.intermediate_size, dt)[0],
+                   ea.layer_route(s_all, dec.hidden_size, dec.intermediate_size, dt)[0])
+              for dt in (torch.bfloat16, torch.float32)}
+    print(f"  layer_route (encoder, decoder): bf16 {routes[torch.bfloat16]}, "
+          f"fp32 {routes[torch.float32]}; the short clip has {short_visible} of {s_vis} "
+          f"visible patches valid")
+    check(routes == {torch.bfloat16: ("k1", "k1"), torch.float32: ("k1", "k2")},
+          f"routes {routes}")
+    args = [m[k] for k in MAE_ARGS]
+    layers = enc.num_layers + dec.num_layers
+    chain = dict.fromkeys(K1_PARTS)
+    no_train = {"k4": 0, "k5": 0, "k7": 0, "k3_block": 0, "k3_layer": 0, "k6_attn": 0}
+
+    def recon(dt, net=model, a=args):
+        with torch.inference_mode():
+            return audiomae_apply(net, enc, dec, *a, dtype=dt)
+
+    out16, got16 = drive("bf16 reconstruction", lambda: recon(torch.bfloat16),
+                         {"k1_layer": layers, "k2_block": 0, **no_train, **chain})
+    out32, got32 = drive("fp32 reconstruction", lambda: recon(torch.float32),
+                         {"k1_layer": enc.num_layers, "k2_block": dec.num_layers, **no_train,
+                          **chain})
+    for name, out in (("bf16", out16), ("fp32", out32)):
+        check(out.shape == (MAE_BATCH, s_all, 256) and bool(torch.isfinite(out).all()),
+              f"{name} reconstruction: shape {tuple(out.shape)} or non-finite values")
+    errs = mae_kernel_checks(model, cfg, m)
+    ms = []
+    for _ in range(MAE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon(torch.bfloat16)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rate = MAE_BATCH / np.median(ms) * 1e3
+    print(f"  mae_recon_clips_per_s {rate:.1f} (bf16, B={MAE_BATCH}, median of {MAE_TIMED} "
+          f"forwards: {['%.2f' % v for v in sorted(ms)]} ms; {label})")
+    pick = [0, MAE_BATCH - 1]  # a full clip and the short one
+    cpu = recon(torch.float32, cpu_model, [a[pick].cpu() for a in args])
+    cos_cpu = float(row_cosines(out32[pick].cpu(), cpu).min())
+    cos16 = float(row_cosines(out16, out32).min())
+    print(f"  cosine over patch rows: fp32 card vs fp32 CPU plain (B=2) {cos_cpu:.7f} "
+          f"(≥ {COS_MAE[torch.float32]}); bf16 vs fp32 on the card (B={MAE_BATCH}) {cos16:.7f} "
+          f"(≥ {COS_MAE[torch.bfloat16]})")
+    check(cos_cpu >= COS_MAE[torch.float32], "fp32 reconstruction disagrees with the CPU")
+    check(cos16 >= COS_MAE[torch.bfloat16], "bf16 reconstruction disagrees with fp32")
+    del cpu_model, out32
+    return model, m, out16, errs, {"bf16": got16, "fp32": got32}, {
+        "mae_recon_clips_per_s": rate, "forward_ms": ms, "cosine_fp32_vs_cpu": cos_cpu,
+        "cosine_bf16_vs_fp32": cos16, "short_clip_visible": short_visible,
+        "routes": {_dt_name(k): v for k, v in routes.items()}}
+
+
+@contextlib.contextmanager
+def fixed_mae_noise(noise):
+    """The stage-1 loss masks by `noise` (moved to the batch's device)."""
+    draw = train.mae_noise
+    train.mae_noise = lambda generator, mask: noise.to(mask.device)
+    try:
+        yield
+    finally:
+        train.mae_noise = draw
+
+
+def mae_train_phase(rs, label):
+    """Phase 15b: the stage-1 step at audiomae_base, B=16, 500 patches: bf16
+    MAE_STEPS steps under one masking (a generator seeded alike each step),
+    then timed steps; fp32 one step, timed steps, and loss and gradients at
+    B=2 against the CPU's plain versions."""
+    base = configs.audiomae_base()
+    enc, dec = base.encoder, base.decoder
+    layers = enc.num_layers + dec.num_layers
+    tc = train.TrainConfig(warmup_steps=1, total_steps=100)
+    batch = audio_batch(rs, MAE_TRAIN_BATCH, 10, 500)
+    per_step = {"k5": 0, **NO_SERVING_KERNELS}
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
+    out, got = {}, {}
+    for dt, k7, steps in ((torch.bfloat16, layers, MAE_STEPS), (torch.float32, enc.num_layers, 1)):
+        name = _dt_name(dt)
+        cfg = dataclasses.replace(base, dtype=dt)
+        print(f"phase 15b: {name} stage-1 training step, audiomae_base, B={MAE_TRAIN_BATCH}, "
+              f"500 patches, {steps} step{'s' * (steps > 1)}")
+        state = train.init_train_state(
+            audiomae_init(enc, dec, torch.Generator().manual_seed(SEED)).to(DEVICE), tc)
+        step = train.make_mae_train_step(cfg, tc)
+        metrics = []
+
+        def run_steps():
+            nonlocal state
+            for _ in range(steps):
+                state, mt = step(state, batch, gen())
+                metrics.append({k: float(v) for k, v in mt.items()})
+
+        torch.cuda.reset_peak_memory_stats()
+        _, got[name] = drive(f"{name} stage-1 step x{steps}", run_steps,
+                             {"k4": layers * steps, "k7": k7 * steps, **per_step})
+        losses = [mt["loss"] for mt in metrics]
+        check(all(np.isfinite(losses + [mt["grad_norm"] for mt in metrics])),
+              f"{name} stage-1 step: non-finite loss or grad_norm")
+        state, ms = time_steps(step, state, batch, gen(), 3 if dt == torch.float32 else 5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  loss {['%.5f' % v for v in losses]}, step times {['%.2f' % v for v in ms]} ms, "
+              f"median {np.median(ms):.2f} ms/step, peak device memory {peak:.2f} GiB ({label})")
+        out[name] = {"loss": losses, "step_ms": ms, "median_step_ms": float(np.median(ms)),
+                     "peak_gib": peak}
+        del state
+    check(out["bfloat16"]["loss"][-1] < out["bfloat16"]["loss"][1],
+          "the bf16 stage-1 loss did not fall")
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    loss_fn = train.make_mae_loss(cfg, tc)
+    small = {k: v[:2] for k, v in batch.items()}
+    res = []
+    noise = train.mae_noise(torch.Generator().manual_seed(SEED), small["audio_mask"].cpu())
+    with fixed_mae_noise(noise):
+        for device in (DEVICE, "cpu"):
+            net = audiomae_init(enc, dec, torch.Generator().manual_seed(SEED)).to(device)
+            loss, _ = loss_fn(net, {k: v.to(device) for k, v in small.items()}, None)
+            loss.backward()
+            res.append((float(loss.detach()),
+                        torch.cat([p.grad.flatten().double().cpu() for p in net.parameters()])))
+            del net
+    (l_card, g_card), (l_cpu, g_cpu) = res
+    l_err = abs(l_card - l_cpu) / abs(l_cpu)
+    g_err = float((g_card - g_cpu).norm() / g_cpu.norm())
+    print(f"  fp32 B=2 card vs CPU plain: loss {l_card:.6f} vs {l_cpu:.6f} (rel {l_err:.2e} ≤ "
+          f"{STEP_TOL['loss']}), gradients rel L2 {g_err:.2e} (≤ {STEP_TOL['grads']})")
+    check(l_err <= STEP_TOL["loss"] and g_err <= STEP_TOL["grads"],
+          "the fp32 stage-1 step on the card disagrees with the CPU")
+    out["fp32_b2_loss_rel_err"], out["fp32_b2_grad_rel_err"] = l_err, g_err
+    return got, out
+
+
+def mae_checkpoint_phase(model, m, out16, label, tmp, data, tok):
+    """Phase 15c: phase 15a's model as a released-layout stage-1 file,
+    `load_audiomae` of it onto the card, its bf16 reconstruction against
+    15a's; `runner --stage mae` for 2 steps and `runner --stage caco
+    --init-audio-from-mae` for 1 on phase 14b's files."""
+    cfg = configs.audiomae_base()
+    enc, dec = cfg.encoder, cfg.decoder
+    layers = enc.num_layers + dec.num_layers
+    print("phase 15c: a released-layout stage-1 checkpoint, written and loaded by the port, "
+          "and the runner's two MAE entry points")
+    ck = os.path.join(tmp, "mae_ckpt")
+    t0 = time.perf_counter()
+    ref = convert.audiomae_params_to_reference(bridge.params_to_jax(model), enc.num_heads,
+                                               dec.num_heads)
+    path = msgpack.save_checkpoint(ck, {"0": {"params": ref}}, step=0)
+    write_s, size = time.perf_counter() - t0, os.path.getsize(path)
+    del ref
+    t0 = time.perf_counter()
+    cfg_loaded, loaded = ckpt_io.load_audiomae(ck)  # cfg=None, strict counts, on the card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counts = {k: ckpt_io.count_params(getattr(loaded, k)) / 1e6 for k in ("encoder", "decoder")}
+    print(f"  {os.path.basename(path)}: {size} bytes, written in {write_s:.2f} s, loaded onto "
+          f"the card in {load_s:.2f} s; counts (M) encoder {counts['encoder']:.4f}, decoder "
+          f"{counts['decoder']:.4f}")
+    check(cfg_loaded == cfg, f"inferred config {cfg_loaded} is not audiomae_base()")
+    src = model.state_dict()
+    differ = [k for k, t in loaded.state_dict().items() if not torch.equal(t, src[k])]
+    check(set(loaded.state_dict()) == set(src) and not differ,
+          f"loaded tensors differ from the source model: {differ[:4]}")
+
+    def recon():
+        with torch.inference_mode():
+            return audiomae_apply(loaded, enc, dec, *(m[k] for k in MAE_ARGS), dtype=torch.bfloat16)
+
+    again, got_ck = drive("bf16 reconstruction on the loaded model", recon,
+                          {"k1_layer": layers, "k2_block": 0})
+    same = torch.equal(again, out16)
+    print(f"  loaded model's bf16 reconstruction vs phase 15a's: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    check(same, "the loaded stage-1 model reconstructs other values")
+    del loaded, again
+    common = ["--data-dir", data, "--batch-size", str(TRAIN_BATCH), "--buffer-seconds", "10",
+              "--patches-seq-len", "500", "--checkpoint-every", "0", "--log-every", "1",
+              "--dtype", "bfloat16", "--device", DEVICE]
+    per_step = {"k5": 0, **NO_SERVING_KERNELS}
+    work = os.path.join(tmp, "mae_work")
+    (state, _), got_mae = drive("runner --stage mae, 2 steps",
+                                lambda: run_main(["--stage", "mae", "--workdir", work,
+                                                  "--steps", "2"] + common),
+                                {"k4": layers * 2, "k7": layers * 2, **per_step})
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    print(f"  stage-1 runner: logged loss {['%.5f' % v for v in losses]}")
+    check(state.step == 2 and [r["step"] for r in rows] == [0, 1] and all(np.isfinite(losses)),
+          f"stage-1 runner: step {state.step}, logged {rows}")
+    del state
+    shutil.rmtree(work)
+    work = os.path.join(tmp, "caco_from_mae")
+    n = configs.caco_base().audio.num_layers
+    (state, _), got_init = drive(
+        "runner --stage caco --init-audio-from-mae, 1 step",
+        lambda: run_main(["--stage", "caco", "--workdir", work, "--tokenizer", tok, "--steps", "1",
+                          "--total-steps", "5", "--warmup-steps", "1",
+                          "--init-audio-from-mae", path] + common),
+        {"k4": n, "k7": n, **per_step})
+    # the schedule's rate is 0 at step 0: the audio tower is still the file's encoder
+    audio = state.params.audio.state_dict()
+    differ = [k for k, t in model.encoder.state_dict().items() if not torch.equal(audio[k], t)]
+    print(f"  stage 2 from the stage-1 file: {len(audio) - len(differ)} of {len(audio)} audio "
+          f"tensors equal to the file's encoder after step 0")
+    check(not differ, f"the audio tower is not the stage-1 encoder: {differ[:4]}")
+    del state
+    shutil.rmtree(work)
+    shutil.rmtree(ck)
+    return {"loaded": got_ck, "runner_mae": got_mae, "runner_init": got_init}, {
+        "file_bytes": size, "write_s": write_s, "load_s": load_s, "param_counts_m": counts,
+        "runner_mae_loss": losses}
 
 
 def clips_per_s(engine, wavs, runs=2):
@@ -1840,12 +2193,31 @@ def run() -> dict:
           f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
           f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
     ckpt_launches, ckpt = checkpoint_phase(cfg, model, wavs, a_emb, tok)
-    run_launches, resume_launches, runner_summary = runner_phase(cfg, rs, label)
-    remat_launches, remat = remat_phase(cfg, rs)
+    del engine, engine30, model
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_runner_")
+    try:
+        data, tok_dir = write_runner_data(tmp, rs)
+        run_launches, resume_launches, runner_summary = runner_phase(cfg, label, tmp, data, tok_dir)
+        remat_launches, remat = remat_phase(cfg, rs)
+        mae_model, masked, recon16, mae_errs, recon_launches, recon = mae_recon_phase(rs, label)
+        for key, err in mae_errs.items():  # K1's errors are kept under its chain's key
+            key = "k1_layer" if key == "K1" else key
+            errs[key] = max(errs[key], err)
+        step_launches, mae_train = mae_train_phase(rs, label)
+        stage1_launches, stage1 = mae_checkpoint_phase(mae_model, masked, recon16, label, tmp,
+                                                       data, tok_dir)
+        del mae_model, masked, recon16
+    finally:
+        shutil.rmtree(tmp)
     print(f"  runner step {runner_summary['median_step_ms']:.1f} ms (median of the intervals, "
           f"B={TRAIN_BATCH}; with a batch's decode {runner_summary['step_ms'][1]:.1f} ms); "
           f"checkpoint {ckpt['file_bytes']} bytes written in "
           f"{ckpt['write_s']:.2f} s, loaded in {ckpt['load_s']:.2f} s ({label})")
+    print(f"  stage 1: mae_recon_clips_per_s {recon['mae_recon_clips_per_s']:.1f} (bf16, "
+          f"B={MAE_BATCH}); stage-1 step {mae_train['bfloat16']['median_step_ms']:.2f} ms bf16 / "
+          f"{mae_train['float32']['median_step_ms']:.2f} ms fp32 (B={MAE_TRAIN_BATCH}), peak "
+          f"{mae_train['bfloat16']['peak_gib']:.2f} / {mae_train['float32']['peak_gib']:.2f} GiB "
+          f"({label})")
     err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
@@ -1853,11 +2225,16 @@ def run() -> dict:
     # one PyTorch call computes K4's, K5's and K7's function; the chains and
     # K8 / K8′ have none (their links' library times are under "links")
     lib_key = {"K4": "k4", "K5": "k5", "K7": "k7"}
+    # launches on the stage-1 paths (phase 15): K1 a bf16 reconstruction
+    # forward, K2 an fp32 one, K4 and K7 over MAE_STEPS bf16 steps
+    mae_path = {"K1": recon_launches["bf16"], "K2": recon_launches["fp32"],
+                "K4": step_launches["bfloat16"], "K7": step_launches["bfloat16"]}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": path[name][key], "max_abs_err": errs[err_key[name]],
                 "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1],
                 "bound_ms": bounds[time_key[name]][0], "bound_by": bounds[time_key[name]][1],
-                "library_ms": links[lib_key[name]]["library_ms"] if name in lib_key else None}
+                "library_ms": links[lib_key[name]]["library_ms"] if name in lib_key else None,
+                "mae_launches": mae_path[name][key] if name in mae_path else 0}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -1881,6 +2258,18 @@ def run() -> dict:
                              "resumed_k7": resume_launches["k7"],
                              "remat_k4": remat_launches[True]["k4"],
                              "plain_k4": remat_launches[False]["k4"]}},
+            "mae": {"recon": recon, "train": mae_train, "checkpoint_runner": stage1,
+                    "launches": {"recon_bf16_k1": recon_launches["bf16"]["k1_layer"],
+                                 "recon_fp32_k1": recon_launches["fp32"]["k1_layer"],
+                                 "recon_fp32_k2": recon_launches["fp32"]["k2_block"],
+                                 "step_bf16_k4": step_launches["bfloat16"]["k4"],
+                                 "step_bf16_k7": step_launches["bfloat16"]["k7"],
+                                 "step_fp32_k4": step_launches["float32"]["k4"],
+                                 "step_fp32_k7": step_launches["float32"]["k7"],
+                                 "loaded_k1": stage1_launches["loaded"]["k1_layer"],
+                                 "runner_mae_k4": stage1_launches["runner_mae"]["k4"],
+                                 "runner_mae_k7": stage1_launches["runner_mae"]["k7"],
+                                 "runner_init_k4": stage1_launches["runner_init"]["k4"]}},
             "gpu": label}
 
 

@@ -17,7 +17,10 @@ against the padded call, bit for bit, and K8 at 1 … 3000 frames with a
 silent clip and a DC plus Nyquist clip, at the default frontend and at
 mel_fmax = 7600; `load_caco` of a caco_tiny file onto the card serving
 through K1, and two steps of `train.runner.main` at caco_tiny in bf16 (K4
-and K7 launch counts).
+and K7 launch counts); the stage-1 AudioMAE at audiomae_base widths with
+one layer a tower (the reconstruction forward's routes against the CPU,
+one loss and backward's K4 / K7 counts, fp32 against the CPU),
+`load_audiomae` onto the card and two steps of `runner --stage mae`.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -848,3 +851,153 @@ def test_runner_two_steps_on_the_card(cuda, tmp_path):
     losses = [json.loads(line)["loss"] for line in open(os.path.join(work, "metrics.jsonl"))]
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert os.listdir(os.path.join(work, "checkpoints")) == ["step_00000002"]
+
+
+def _mae_one_layer(seed):
+    """audiomae_base's widths (768-d, 8 heads, MLP 3072) with one encoder
+    and one decoder layer, random weights from `seed`."""
+    import dataclasses
+
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.models.audio import audiomae_init
+
+    base = configs.audiomae_base()
+    cfg = dataclasses.replace(base, encoder=dataclasses.replace(base.encoder, num_layers=1),
+                              decoder=dataclasses.replace(base.decoder, num_layers=1))
+    return cfg, audiomae_init(cfg.encoder, cfg.decoder, torch.Generator().manual_seed(seed))
+
+
+def _mae_grid(b, s, lengths, seed):
+    """A masked 500-patch grid (mask ratio 0.8) with a clip shorter than a
+    fifth of it, on the CPU."""
+    from cacophony_tpu_torch.train import train
+
+    rs = np.random.RandomState(seed)
+    mask = (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(np.int32)
+    inds = np.arange(s, dtype=np.int32)[None] * mask
+    patches = (rs.randn(b, s, 256) * mask[..., None]).astype(np.float32)
+    batch = {"audio_patches": torch.from_numpy(patches),
+             "audio_time_inds": torch.from_numpy(inds // 8),
+             "audio_freq_inds": torch.from_numpy(inds % 8),
+             "audio_mask": torch.from_numpy(mask)}
+    noise = train.mae_noise(torch.Generator().manual_seed(seed), batch["audio_mask"])
+    return batch, train.mae_random_masking(noise, batch, 0.8)
+
+
+_MAE_ARGS = ("patches", "mask", "time_inds", "freq_inds", "restore_time_inds",
+             "restore_freq_inds", "restore_mask")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,routes", [("bfloat16", {"k1_layer": 2, "k2_block": 0}),
+                                          ("float32", {"k1_layer": 1, "k2_block": 1})])
+def test_mae_reconstruction_on_the_card(cuda, dtype, routes):
+    """The reconstruction forward at audiomae_base widths (one layer a
+    tower): the encoder at 100 patches and the decoder at 500 take
+    `layer_route`'s routes (bf16 K1 and K1, fp32 K1 and K2); the rows agree
+    with the CPU's plain path (cosine >= 0.9999 fp32, 0.999 bf16)."""
+    from cacophony_tpu_torch.models.audio import audiomae_apply
+
+    td = getattr(torch, dtype)
+    cfg, model = _mae_one_layer(3)
+    _, m = _mae_grid(3, 500, [500, 320, 80], 4)
+    args = [m[k] for k in _MAE_ARGS]
+    with torch.no_grad():
+        ref = audiomae_apply(model, cfg.encoder, cfg.decoder, *args, dtype=td).float()
+        card = model.to(cuda)
+        _reset_layer_launches()
+        got = audiomae_apply(card, cfg.encoder, cfg.decoder, *(a.to(cuda) for a in args),
+                             dtype=td).float().cpu()
+    torch.cuda.synchronize()
+    for k, n in routes.items():
+        assert ea.LAYER_LAUNCHES[k] == n, (k, ea.LAYER_LAUNCHES)
+    cos = torch.nn.functional.cosine_similarity(got.flatten(0, 1), ref.flatten(0, 1), dim=-1)
+    assert torch.isfinite(got).all() and cos.min() >= (0.9999 if dtype == "float32" else 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k7", [("bfloat16", 2), ("float32", 1)])
+def test_mae_train_step_on_the_card(cuda, dtype, k7, monkeypatch):
+    """One stage-1 loss and backward at audiomae_base widths (one layer a
+    tower) under the same masking noise on both devices: K4 in both layers;
+    K7 in both in bf16 and in the encoder only in fp32 (the decoder's 500
+    patches fail fp32's `bwd_fits_vmem`).  fp32: loss 1e-5 and gradients
+    1e-4 relative against the CPU."""
+    import dataclasses
+
+    from cacophony_tpu_torch.train import train
+
+    cfg, model = _mae_one_layer(5)
+    cfg = dataclasses.replace(cfg, dtype=getattr(torch, dtype))
+    batch, _ = _mae_grid(2, 500, [500, 80], 6)
+    noise = train.mae_noise(torch.Generator().manual_seed(0), batch["audio_mask"])
+    monkeypatch.setattr(train, "mae_noise", lambda generator, mask: noise.to(mask.device))
+    loss_fn = train.make_mae_loss(cfg, train.TrainConfig())
+    out = []
+    for device in ("cpu", cuda):
+        net = model.to(device)
+        net.zero_grad(set_to_none=True)
+        _reset_layer_launches()
+        loss, _ = loss_fn(net, {k: v.to(device) for k, v in batch.items()}, None)
+        loss.backward()
+        out.append((float(loss.detach()),
+                    torch.cat([p.grad.flatten().double().cpu() for p in net.parameters()])))
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["k4"] == 2 and kern.LAUNCHES["k7"] == k7
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    assert np.isfinite(l_card) and torch.isfinite(g_card).all()
+    if dtype == "float32":
+        assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+        assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_load_audiomae_on_the_card(cuda, tmp_path):
+    """A stage-1 file written by the port loads with `load_audiomae` onto
+    the card (its default device), every tensor equal to the source."""
+    import dataclasses
+
+    from cacophony_tpu_torch.checkpoints import bridge, convert, io, msgpack
+    from cacophony_tpu_torch.models.audio import audiomae_init
+    from cacophony_tpu_torch.train.runner import _tiny_mae
+
+    cfg = _tiny_mae()
+    model = audiomae_init(cfg.encoder, cfg.decoder, torch.Generator().manual_seed(8))
+    ref = convert.audiomae_params_to_reference(bridge.params_to_jax(model), 2, 2)
+    msgpack.save_checkpoint(str(tmp_path), {"0": {"params": ref}}, step=0)
+    loaded_cfg, loaded = io.load_audiomae(str(tmp_path), strict_counts=False)
+    assert loaded_cfg.decoder == cfg.decoder  # the encoder's informational max_time_ind is base's
+    assert loaded_cfg.encoder == dataclasses.replace(cfg.encoder, max_time_ind=1000)
+    assert next(loaded.parameters()).device.type == "cuda"
+    for name, t in loaded.state_dict().items():
+        assert torch.equal(t.cpu(), model.state_dict()[name]), name
+
+
+@pytest.mark.cuda
+def test_mae_runner_two_steps_on_the_card(cuda, tmp_path):
+    """`train.runner.main --stage mae --tiny-model` in bf16 on the card from
+    wavs alone: K4 and K7 once per layer of each tower per step."""
+    import json
+    import os
+
+    from scipy.io import wavfile
+
+    from cacophony_tpu_torch.train import runner
+
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(8):
+        x = (0.1 * np.random.RandomState(i).randn(12000)).astype(np.float32)
+        wavfile.write(str(data / f"c{i}.wav"), 16000, (x * 32767).astype(np.int16))
+    work = str(tmp_path / "work")
+    kern.reset_launches()
+    state = runner.main(["--stage", "mae", "--data-dir", str(data), "--workdir", work,
+                         "--steps", "2", "--batch-size", "4", "--buffer-seconds", "1",
+                         "--patches-seq-len", "32", "--tiny-model", "--dtype", "bfloat16",
+                         "--checkpoint-every", "0", "--log-every", "1"])
+    torch.cuda.synchronize()
+    layers = 2 + 2  # the tiny encoder's and decoder's
+    assert kern.LAUNCHES["k4"] == 2 * layers and kern.LAUNCHES["k7"] == 2 * layers
+    assert state.step == 2 and next(state.params.parameters()).device.type == "cuda"
+    losses = [json.loads(line)["loss"] for line in open(os.path.join(work, "metrics.jsonl"))]
+    assert len(losses) == 2 and np.isfinite(losses).all()

@@ -1,17 +1,21 @@
 """The port's training runner on the CPU (`cacophony_tpu_torch.train.runner`,
-the stage-2 counterpart of cacophony_tpu/train/runner.py), its train-state
-checkpoints (save / keep-N / latest_step / resume) and the metrics and
-timing utilities — as tests/test_utils_resume.py holds the JAX package's.
+the counterpart of cacophony_tpu/train/runner.py: stage 2, stage 1 with
+`--stage mae`, and stage 2 started from a stage-1 file with
+`--init-audio-from-mae`), its train-state checkpoints (save / keep-N /
+latest_step / resume) and the metrics and timing utilities — as
+tests/test_utils_resume.py holds the JAX package's.
 
-Resume is exact on the CPU: four steps straight and two steps plus a
-resumed two end with the same parameters and AdamW state, bit for bit
-(each step's generator is seeded by (seed, step), the loader skips the
-batches trained on, AdamW's count and the bf16 first moment round-trip).
+Resume is exact on the CPU in both stages: four steps straight and two
+steps plus a resumed two end with the same parameters and AdamW state, bit
+for bit (each step's generator is seeded by (seed, step), the loader skips
+the batches trained on, AdamW's count and the bf16 first moment
+round-trip).
 """
 
 import csv
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -19,8 +23,10 @@ import torch
 from scipy.io import wavfile
 
 from cacophony_tpu_torch import configs
+from cacophony_tpu_torch.checkpoints import bridge, convert, msgpack
 from cacophony_tpu_torch.checkpoints.io import latest_step, load_train_state, save_train_state
 from cacophony_tpu_torch.data.tokenizer import _bytes_to_unicode
+from cacophony_tpu_torch.models.audio import AudioMAE, audiomae_init
 from cacophony_tpu_torch.models.caco import caco_init
 from cacophony_tpu_torch.train import runner
 from cacophony_tpu_torch.train.train import TrainConfig, init_train_state, make_caco_train_step
@@ -97,12 +103,81 @@ def test_resumed_run_equals_an_unbroken_one(data, tmp_path, capsys):
     assert [r["loss"] for r in rows] == [r["loss"] for r in ref]
 
 
-@pytest.mark.parametrize("argv,message", [(["--stage", "mae"], "queue A item 3"),
-                                          (["--init-audio-from-mae", "x"], "queue A item 3"),
-                                          (["--init-text-from-hf", "roberta-base"], "HF")])
+@pytest.mark.parametrize("argv,message", [(["--init-text-from-hf", "roberta-base"], "HF")])
 def test_unported_options_exit_with_a_message(data, tmp_path, argv, message):
     with pytest.raises(SystemExit, match=message):
         runner.main(_args(data, str(tmp_path / "w"), 1) + argv)
+
+
+@pytest.fixture(scope="module")
+def wavs_only(data, tmp_path_factory):
+    """The fixture's clips without captions.csv (the MAE stage needs none)."""
+    d = tmp_path_factory.mktemp("wavs_only")
+    for name in os.listdir(data[0]):
+        if name.endswith(".wav"):
+            shutil.copy(os.path.join(data[0], name), d / name)
+    return str(d)
+
+
+def _mae_args(data_dir, workdir, steps, dtype="float32"):
+    return ["--stage", "mae", "--data-dir", data_dir, "--workdir", workdir,
+            "--steps", str(steps), "--total-steps", "4", "--batch-size", "4",
+            "--buffer-seconds", "0.5", "--patches-seq-len", "16", "--tiny-model",
+            "--device", "cpu", "--warmup-steps", "1", "--checkpoint-every", "0",
+            "--log-every", "1", "--dtype", dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mae_stage_writes_finite_metrics(wavs_only, tmp_path, dtype):
+    """`--stage mae --tiny-model` trains the tiny AudioMAE from wavs alone
+    (no captions, no tokenizer) and logs finite losses."""
+    work = str(tmp_path / "work")
+    state = runner.main(_mae_args(wavs_only, work, 2, dtype))
+    assert isinstance(state.params, AudioMAE) and state.step == 2
+    assert state.params.encoder.ln_f.scale.shape == (32,)
+    rows = [json.loads(line) for line in open(os.path.join(work, "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        assert set(r) >= {"loss", "grad_norm"} and "caption" not in r
+        assert np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) and r["loss"] > 0
+    assert latest_step(os.path.join(work, "checkpoints")) == 2
+
+
+def test_resumed_mae_run_equals_an_unbroken_one(wavs_only, tmp_path, capsys):
+    straight = runner.main(_mae_args(wavs_only, str(tmp_path / "a"), 4))
+    runner.main(_mae_args(wavs_only, str(tmp_path / "b"), 2))
+    capsys.readouterr()
+    resumed = runner.main(_mae_args(wavs_only, str(tmp_path / "b"), 4))
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert resumed.step == straight.step == 4
+    for (name, a), b in zip(straight.params.state_dict().items(),
+                            resumed.params.state_dict().values()):
+        assert torch.equal(a, b), name
+    for a, b in zip(straight.opt_state.mu + straight.opt_state.nu,
+                    resumed.opt_state.mu + resumed.opt_state.nu):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    rows = [json.loads(line) for line in open(tmp_path / "b" / "metrics.jsonl")]
+    ref = [json.loads(line) for line in open(tmp_path / "a" / "metrics.jsonl")]
+    assert [r["loss"] for r in rows] == [r["loss"] for r in ref]
+
+
+def test_init_audio_from_mae_transplants_the_encoder(data, tmp_path):
+    """Stage 2 started from a released-layout stage-1 file: after one step
+    (the schedule's rate is 0 at step 0, so no parameter moves) the audio
+    tower is the file's encoder bit for bit; the text tower is the seed's."""
+    cfg = runner._tiny_mae()
+    mae = audiomae_init(cfg.encoder, cfg.decoder, torch.Generator().manual_seed(11))
+    ref = convert.audiomae_params_to_reference(bridge.params_to_jax(mae), cfg.encoder.num_heads,
+                                               cfg.decoder.num_heads)
+    path = msgpack.save_checkpoint(str(tmp_path / "mae"), {"0": {"params": ref}}, step=0)
+    plain = runner.main(_args(data, str(tmp_path / "plain"), 1))
+    state = runner.main(_args(data, str(tmp_path / "init"), 1) + ["--init-audio-from-mae", path])
+    for name, t in mae.encoder.state_dict().items():
+        assert torch.equal(state.params.audio.state_dict()[name], t), name
+        assert not torch.equal(plain.params.audio.state_dict()[name], t) or t.dim() == 1
+    for (name, a), b in zip(plain.params.text.state_dict().items(),
+                            state.params.text.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 def _tiny_state(seed=0):
