@@ -5,19 +5,27 @@ its module names and runs on an NVIDIA H100 (sm_90a), with the Pallas
 kernels of its main path rewritten as hand-written CUDA (`csrc/`).  It
 imports torch and never jax.
 
-Ported so far: wav → log-mel (unfused, or the fused K8 kernel) → patches →
-12-layer audio ViT, each layer on the route the JAX package takes for its
-length and dtype (K1, K2 or K3 kernel chains, or the einsum layer;
-ops/encoder_attention.py) → pooled audio embedding; the causal text tower
-and its pooler → text embedding; and the contrastive score, served by
-`CacoEngine` (embed_audio at 10-s and 30-s buffers, embed_audio_long,
-audio_patch_batch, embed_texts, score).  The stage-2 training step
-(`train/train.py`), with the caption decoder and the training frontend;
-its audio attention runs the K4 / K5 kernels and K4's backward K7.
-Released checkpoints load with `load_caco` (a Flax msgpack reader of its
-own, checkpoints/msgpack.py), and `python -m cacophony_tpu_torch.train.runner`
-trains stage 2 from a folder of audio files and captions (host decode in
-native/, the loader in data/pipeline.py), saving and resuming its state.
+Ported so far:
+- serving (`CacoEngine`): wav → log-mel (unfused, or the fused K8 kernel)
+  → patches → 12-layer audio ViT, each layer on the route the JAX package
+  takes for its length and dtype (K1, K2 or K3 kernel chains, or the einsum
+  layer; ops/encoder_attention.py) → pooled audio embedding; the causal
+  text tower and its pooler → text embedding; the contrastive score
+  (embed_audio at 10-s and 30-s buffers, embed_audio_long,
+  audio_patch_batch, embed_texts, score);
+- captioning: `CacoEngine.caption` (KV-cached batched decode, a CUDA graph
+  per step on the card; models/caco.py), the continuous-batching
+  `runtime.continuous.ContinuousCaptioner`, and the device-resident
+  retrieval gallery `runtime.gallery.GalleryIndex`;
+- stage 1, the AudioMAE (models/audio.py: `audiomae_apply`) and its
+  training step; stage 2, the contrastive + caption training step
+  (train/train.py), whose audio attention runs the K4 / K5 kernels and
+  K4's backward K7;
+- checkpoints: released Flax msgpack files load with `load_caco` /
+  `load_audiomae` (a reader of its own, checkpoints/msgpack.py), and
+  `python -m cacophony_tpu_torch.train.runner` trains either stage from a
+  folder of audio files (host decode in native/, the loader in
+  data/pipeline.py), saving and resuming its state.
 """
 
 __version__ = "0.1.0"
@@ -32,7 +40,15 @@ def __getattr__(name):
 
         return CacoEngine
     if name == "load_caco":
-        from cacophony_tpu_torch.checkpoints.io import load_caco
+        from cacophony_tpu_torch.checkpoints import load_caco
 
         return load_caco
+    if name == "load_audiomae":
+        from cacophony_tpu_torch.checkpoints import load_audiomae
+
+        return load_audiomae
+    if name == "load_tokenizer":
+        from cacophony_tpu_torch.data import load_tokenizer
+
+        return load_tokenizer
     raise AttributeError(name)

@@ -20,6 +20,7 @@ default: the masks are kept for the backward by autograd).
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -69,6 +70,25 @@ def dense(p: Dense, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> tor
     if dtype is None:
         dtype = torch.promote_types(x.dtype, w.dtype)
     return x.to(dtype) @ w.to(dtype) + b.to(dtype)
+
+
+def cast_dense(module: nn.Module, dtype: torch.dtype):
+    """`module`'s parameter tree with every Dense weight and bias cast to
+    `dtype` once, as namespaces the plain functions read like the modules.
+    `dense` casts the same way on every call, so the values are identical;
+    LayerNorm parameters and embedding tables are shared as they are (fp32
+    statistics, fp32 embeddings before the cast).  Decode calls it once per
+    batch instead of casting the weights again in every step."""
+    if isinstance(module, Dense):
+        return SimpleNamespace(w=module.w.detach().to(dtype), b=module.b.detach().to(dtype))
+    if isinstance(module, nn.ModuleList):
+        return [cast_dense(m, dtype) for m in module]
+    if not module._modules:
+        return module
+    out = SimpleNamespace(**dict(module.named_parameters(recurse=False)))
+    for name, child in module.named_children():
+        setattr(out, name, cast_dense(child, dtype))
+    return out
 
 
 class _LayerNorm(torch.autograd.Function):

@@ -10,13 +10,16 @@ The full-sequence branches of the JAX `multi_head_attention` (`:89-137`,
 - the einsum route: an additive bias (or one rebuilt from `flash_mask`
   with −1e30, plus the causal triangle), softmax in fp32, optional
   attention-probability dropout;
-- cross-attention: q from x, K|V from `memory` (params `q`, `kv`, `o`).
-The KV-cache decode branch comes with the decode slice.
+- cross-attention: q from x, K|V from `memory` (params `q`, `kv`, `o`);
+- the read-only KV-cache branch of decode (`:143-202`, the merged (B, T, E)
+  layout): one query position attends over the cached positions the bias
+  leaves open plus its own fresh k/v, and the (B, 1, E) k/v slice goes
+  back to the caller, who writes it into the cache.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,20 +58,90 @@ def _dense_cols(p: Dense, x: torch.Tensor, dtype, lo: int, hi: int) -> torch.Ten
     return x.to(dtype) @ w.to(dtype) + b.to(dtype)
 
 
+def _scale_q(q: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """q · 1/√Dh, the factor computed in q's dtype and then used as a Python
+    number (a small tensor copied to the card would wait for the device)."""
+    return q * float(1.0 / torch.tensor(float(head_dim)).sqrt().to(q.dtype))
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """One query position against a read-only cache plus its own k/v (JAX
+    ops/attention.py:170-199, merged layout).  q, k, v: (B, 1, E); cache_k,
+    cache_v: (B, T, E), cast to q's dtype; bias: additive over the T cached
+    positions, (1 or B, 1, 1, T), added in the logits' dtype → (B, 1, E).
+
+    Per-head products on the cache viewed as (B, T, H, Dh); the current
+    token's logit goes last, the softmax runs in fp32 and is cast back, and
+    out = w_past · V_cache + v · w_self."""
+    b, s, e = q.shape
+    hd = e // num_heads
+    q = _scale_q(q.reshape(b, s, num_heads, hd), hd)
+    k = k.reshape(b, s, num_heads, hd)
+    v = v.reshape(b, s, num_heads, hd)
+    ck = cache_k.to(q.dtype).reshape(b, -1, num_heads, hd)
+    cv = cache_v.to(q.dtype).reshape(b, -1, num_heads, hd)
+    logits_past = torch.einsum("bqhd,bthd->bhqt", q, ck)
+    if bias is not None:
+        logits_past = logits_past + bias.to(logits_past.dtype)
+    logits_self = torch.einsum("bqhd,bqhd->bhq", q, k)[..., None]
+    logits = torch.cat([logits_past, logits_self], dim=-1)
+    weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    w_past, w_self = weights[..., :-1], weights[..., -1]
+    out = torch.einsum("bhqt,bthd->bqhd", w_past, cv)
+    out = out + v * w_self.transpose(1, 2)[..., None]
+    return out.reshape(b, s, e)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+           num_heads: int, dropout_rate: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Heads of (B, Sq, E) queries over keys and values → (B, Sq, E): q
+    scaled by 1/√Dh, the additive bias in the logits' dtype, softmax in fp32
+    cast back, optional attention-probability dropout.  k, v: (B, Sk, E), or
+    head-major (B, H, Sk, Dh), which the per-head products read in place
+    (the decoder's precomputed cross K/V, read in every decode step)."""
+    b, s, d = q.shape
+    head_dim = d // num_heads
+    q = _scale_q(q.reshape(b, s, num_heads, head_dim), head_dim)
+    keys = "bhkd" if k.dim() == 4 else "bkhd"
+    if k.dim() == 3:
+        k, v = (t.reshape(b, t.shape[1], num_heads, head_dim) for t in (k, v))
+    logits = torch.einsum(f"bqhd,{keys}->bhqk", q, k)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    if dropout_rate > 0.0 and generator is not None:
+        weights = dropout(generator, weights, dropout_rate, False)
+    return torch.einsum(f"bhqk,{keys}->bqhd", weights, v).reshape(b, s, d)
+
+
 def multi_head_attention(p, x: torch.Tensor, *, num_heads: int,
                          bias: Optional[torch.Tensor] = None,
                          memory: Optional[torch.Tensor] = None,
+                         kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                          dtype: Optional[torch.dtype] = torch.float32,
                          flash_mask: Optional[torch.Tensor] = None,
                          causal: bool = False, dropout_rate: float = 0.0,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None):
     """(B, S, D) → (B, S, D).  bias: additive, broadcastable to (B, H, S, S),
     added to the logits in the compute dtype.  Without a bias, `flash_mask`
     (B, S) (>0 = valid key) picks a kernel route or becomes the bias
     0 / −1e30 (with the causal triangle when `causal`).  `memory` makes it
-    cross-attention (params `q`, `kv`, `o`)."""
+    cross-attention (params `q`, `kv`, `o`).
+
+    Decode (`kv_cache` = (k, v), each (B, T, E)): S must be 1, the cache is
+    read only (the bias must close the positions at and past the write
+    index, text._decode_bias), and the call returns (out, (k, v)) with the
+    current token's (B, 1, E) k/v for the caller to write."""
     b, s, d = x.shape
-    head_dim = d // num_heads
+    if kv_cache is not None:
+        if s != 1 or memory is not None:
+            raise ValueError("KV-cached attention takes one query position and no memory")
+        q, k, v = dense(p.qkv, x, dtype).split(d, dim=-1)
+        out = cached_attention(q, k, v, kv_cache[0], kv_cache[1], bias, num_heads)
+        return dense(p.o, out, dtype), (k, v)
     if memory is None:
         plan = ea.kernel_plan(s, d, dtype if dtype is not None else x.dtype)
         use_kernel = flash_mask is not None and dropout_rate == 0.0 and plan is not None
@@ -84,20 +157,10 @@ def multi_head_attention(p, x: torch.Tensor, *, num_heads: int,
     else:
         q = dense(p.q, x, dtype)
         k, v = dense(p.kv, memory, dtype).split(d, dim=-1)
-    q, k, v = (t.reshape(b, t.shape[1], num_heads, head_dim) for t in (q, k, v))
-    # 1 / sqrt(Dh) computed in q's dtype, then used as a Python number: a
-    # small tensor copied to the card would wait for the device
-    q = q * float(1.0 / torch.tensor(float(head_dim)).sqrt().to(q.dtype))
     if bias is None and flash_mask is not None:
         allowed = flash_mask[:, None, None, :] > 0
         if causal:
             allowed = allowed & torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
         bias = torch.where(allowed, 0.0, FLASH_MASK_BIAS)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    if bias is not None:
-        logits = logits + bias.to(logits.dtype)
-    weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
-    if dropout_rate > 0.0 and generator is not None:
-        weights = dropout(generator, weights, dropout_rate, False)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(b, s, d)
+    out = attend(q, k, v, bias, num_heads, dropout_rate, generator)
     return dense(p.o, out, dtype)

@@ -1,6 +1,6 @@
 """CacoEngine: batched inference entry points on one device
 (cacophony_tpu/runtime/engine.py: embed_audio, embed_audio_long,
-audio_patch_batch, embed_texts, score).
+audio_patch_batch, embed_texts, score, caption).
 
 - fixed-size batch buckets (pad + mask + slice): every audio bucket is
   `batch_size` clips of `buffer_seconds`, the tail bucket padded with
@@ -19,14 +19,16 @@ Each audio-encoder layer takes the JAX package's route for the compute
 dtype and sequence length (`ops.encoder_attention.layer_route`): K1, K2 or
 K3 on a CUDA device, their plain versions on the CPU, or the einsum layer.
 `fused_frontend=True` runs the log-mel through K8 (frontend/fused.py).
-Not ported yet: the mesh (data parallelism) and captioning.
+`caption` decodes every clip in one batch with KV caches (models/caco.py:
+`decode`; a CUDA graph per step on the card).
+Not ported yet: the mesh (data parallelism).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples, wav_t
 from cacophony_tpu_torch.models.caco import (
     CacoModel,
     contrastive_logits,
+    decode,
     get_audio_embedding,
     get_text_embedding,
 )
@@ -255,3 +258,20 @@ class CacoEngine:
         a = torch.as_tensor(np.asarray(audio_emb, np.float32), device=self.device)
         t = torch.as_tensor(np.asarray(text_emb, np.float32), device=self.device)
         return contrastive_logits(self.params, a, t).cpu().numpy()
+
+    @torch.inference_mode()
+    def caption(self, wavs: Sequence[np.ndarray], *, max_length: int = 100,
+                temperature: float = 0.1, seed: int = 42) -> List[str]:
+        """AR captioning with the reference's eval defaults (max 100, T = 0.1,
+        seed 42; eval_caco.py:261,271): one patch batch of all clips, decode
+        with caches in the compute dtype, sampled from a generator on the
+        engine's device seeded with `seed` (torch cannot draw JAX's
+        numbers: only near-greedy captions match the JAX engine's)."""
+        if self.tokenizer is None:
+            raise ValueError("engine needs a tokenizer for captioning")
+        batch, n = self.audio_patch_batch(wavs)
+        ids = decode(self.params, self.cfg, batch, max_length=max_length, temperature=temperature,
+                     bos_id=self.tokenizer.bos_token_id, eos_id=self.tokenizer.eos_token_id,
+                     pad_id=self.tokenizer.pad_token_id,
+                     generator=torch.Generator(device=self.device).manual_seed(seed))
+        return self.tokenizer.batch_decode(ids[:n].cpu().numpy(), skip_special_tokens=True)

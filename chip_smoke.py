@@ -132,10 +132,35 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    bit-identical to (a)'s; `runner --stage mae` for 2 steps and `runner
    --stage caco --init-audio-from-mae` for 1 on phase 14b's files (the
    audio tower equals the file's encoder after step 0, whose rate is 0).
+16. captioning at caco_base (random weights from the seed, the byte-level
+   tokenizer): (a) `CacoEngine.caption` with the reference's defaults (max
+   100, T 0.1, seed 42) on 8 clips of 3-10 s in 10-s buffers, bf16 (K1 12
+   times in the audio pass), fp32 (K2 12 times) and bf16 with the fused
+   frontend (K8 once); fp32 stepwise decode logits against the
+   teacher-forced `caption_logits` on the produced tokens (max rel <=
+   1e-4); the CUDA-graph step against the eager one at top_k=1 (identical
+   tokens); bf16 against fp32 first-step logits (cosine >= 0.999); one
+   window of graph steps and one of eager steps under
+   `torch.cuda.set_sync_debug_mode("error")` (no host sync); (b)
+   `decode_tokens_per_s` at bench.py's shape (bf16, 256 streams × 64, 500
+   patches, T 1.0; 1 warm-up, then 3 calls and one sync, graph and eager in
+   turns), the audio pass, the decoder's build and the steps in ms, the
+   steps' device busy time and idle share (torch.profiler), peak memory;
+   (c) `continuous_tokens_per_s` (256 requests on 256 slots, drain_every
+   32, max_length 64), the tokens generated, the prefill's K1 launches, and
+   near-greedy (T 1e-6) fp32 captions of 8 requests on 3 slots against
+   batch decode (equal, or a top-two logit gap below 1e-4 where they first
+   differ); (d) `GalleryIndex` with 262 144 × 768 fp32 rows added in four
+   parts (capacity grows past its 131 072-row slab), 1 % deleted, 1024
+   queries, top-10 against numpy (indices equal, scores to 1e-5), a save /
+   load round trip, ms per search.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′; `mae_launches` counts
-phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps); the last line is
+phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps;
+`caption_launches` phase 16a's in one caption call: K1 bf16, K2 fp32, K8
+with the fused frontend; `decode_launches` and `prefill_launches` phase 16b's
+256-stream decode call and 16c's continuous run); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -155,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -189,6 +215,8 @@ from cacophony_tpu_torch.native import wavio
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
+from cacophony_tpu_torch.runtime.continuous import ContinuousCaptioner
+from cacophony_tpu_torch.runtime.gallery import GalleryIndex
 from cacophony_tpu_torch.train import runner, train
 
 SEED = 0
@@ -2012,6 +2040,370 @@ def mae_checkpoint_phase(model, m, out16, label, tmp, data, tok):
         "runner_mae_loss": losses}
 
 
+# Captioning (phase 16).  bench.py's decode shape (`_decode_throughput`):
+# bf16, 256 streams × max_length 64 at 500 patches, temperature 1.0, 1
+# warm-up then 3 trials; its continuous shape (`_continuous_throughput`):
+# 256 requests on 256 slots, drain_every 32.  Random weights over the
+# 50 265-token vocabulary almost never sample EOS, so a stream decodes its
+# whole budget: tokens = streams × (max_length − 1) per call.
+DECODE_STREAMS, DECODE_LEN, DECODE_TRIALS, DECODE_PATCHES = 256, 64, 3, 500
+CONT_SLOTS, CONT_DRAIN = 256, 32
+CAPTION_CLIPS = 8
+# fp32 stepwise decode logits against teacher forcing on the produced tokens
+# (the same fp32 math, the attention over the cache instead of the causal
+# bias): max |diff| / max |ref| over the live stream-steps.  bf16 against
+# fp32 first-step logits: cosine per stream.  Near-greedy continuous
+# captions against batch decode, each drawing its own Gumbel noise: equal,
+# or the top-two logit gap where they first differ below 1e-4.  A gap g
+# flips a draw at temperature T with probability 1 / (1 + exp(g / T)): at
+# T = 1e-4 that is 1 % at g = 4.6e-4, so over some 250 draws the bound
+# would fail about one run in ten with no fault; at T = 1e-6 a gap of 1e-4
+# flips with probability e^-100.  Gallery against numpy: indices equal,
+# scores to 1e-5 absolute (fp32 products summed in another order).
+CAPTION_REL, CAPTION_COS, NEAR_TIE_GAP, GALLERY_ATOL = 1e-4, 0.999, 1e-4, 1e-5
+NEAR_GREEDY_T = 1e-6
+GALLERY_ROWS, GALLERY_DIM, GALLERY_QUERIES, GALLERY_SLAB = 262_144, 768, 1024, 131_072
+
+
+def decoder_kw(tok, **kw):
+    return dict(dict(bos_id=tok.bos_token_id, eos_id=tok.eos_token_id,
+                     pad_id=tok.pad_token_id), **kw)
+
+
+def stepwise(cfg, model, batch, tok, max_length, temperature, **kw):
+    """A BatchDecoder run one step at a time → (ids, per-step logits
+    (B, n, V), per-step generating flags (B, n))."""
+    dec = caco.BatchDecoder(model, cfg, batch, max_length=max_length,
+                            **decoder_kw(tok, temperature=temperature,
+                                         generator=torch.Generator(device=DEVICE).manual_seed(0),
+                                         **kw))
+    logits, flags = [], []
+    while dec.steps_left:
+        flags.append(dec.state.is_generating.clone())
+        dec.steps(1)
+        logits.append(dec.logits.clone())
+    return dec.state.input_ids.clone(), torch.stack(logits, 1), torch.stack(flags, 1)
+
+
+def device_kernels(fn, top: int = 8):
+    """fn once under torch.profiler (device activity only) → the `top`
+    device operations by their summed time: (name, ms, count)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = total.get(e.name, (0.0, 0))
+            total[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in total.items()), key=lambda r: -r[1])[:top]
+
+
+def no_sync_window(dec) -> None:
+    """One window of decode steps, any host sync in it raising."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dec.steps(caco.DECODE_WINDOW)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@torch.inference_mode()
+def caption_engine_phase(cfg, model, tok, wavs, label):
+    """Phase 16a: CacoEngine.caption at caco_base (bf16, fp32, bf16 with the
+    fused frontend) on 8 clips of 3-10 s in 10-s buffers, and the decode
+    path's checks on the same clips."""
+    clips = wavs[:CAPTION_CLIPS]
+    layers = cfg.audio.num_layers
+    print(f"phase 16a: CacoEngine.caption at caco_base, {len(clips)} clips in 10-s buffers, "
+          f"max_length 100, T 0.1, seed 42 (the reference's defaults)")
+    engines, caps, got = {}, {}, {}
+    for name, dt, fused_fe, expect in (
+            ("bf16", torch.bfloat16, False, {"k1_layer": layers, "k2_block": 0, "log_mel": 0}),
+            ("fp32", torch.float32, False, {"k2_block": layers, "k1_layer": 0}),
+            ("bf16_fused_frontend", torch.bfloat16, True, {"log_mel": 1, "k1_layer": layers})):
+        engines[name] = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE,
+                                   batch_size=len(clips), dtype=dt, fused_frontend=fused_fe)
+        t0 = time.perf_counter()
+        caps[name], got[name] = drive(f"{name} caption", lambda: engines[name].caption(clips),
+                                      expect)
+        wall = time.perf_counter() - t0
+        check(len(caps[name]) == len(clips) and all(isinstance(c, str) for c in caps[name]),
+              f"{name} caption: {caps[name]!r}")
+        print(f"  {name}: {wall * 1e3:.1f} ms for {len(clips)} captions of 99 steps, the first "
+              f"{caps[name][0][:40]!r} ({label})")
+    batch16, _ = engines["bf16"].audio_patch_batch(clips)
+    batch32, _ = engines["fp32"].audio_patch_batch(clips)
+    del engines
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    ids, steps32, flags = stepwise(cfg32, model, batch32, tok, 24, 1.0)
+    _, hidden = get_audio_embedding(model, cfg32, batch32["audio_patches"],
+                                    batch32["audio_time_inds"], batch32["audio_freq_inds"],
+                                    batch32["audio_mask"], normalize=False)
+    full = caco.caption_logits(model, cfg32, ids[:, :-1], torch.ones_like(ids[:, :-1]), hidden,
+                               batch32["audio_mask"])
+    live = flags.bool()
+    rel = float((steps32 - full).abs().amax(-1)[live].max() / full.abs().amax(-1)[live].max())
+    print(f"  fp32 stepwise decode logits vs teacher-forced caption_logits on the produced "
+          f"tokens ({int(live.sum())} stream-steps): max rel {rel:.3e} (≤ {CAPTION_REL})")
+    check(rel <= CAPTION_REL, f"fp32 decode logits {rel} from teacher forcing")
+
+    graph_eager = {}
+    for graph in (True, False):
+        graph_eager[graph] = caco.decode(
+            model, cfg16, batch16, max_length=32,
+            **decoder_kw(tok, temperature=1.0, top_k=1, cuda_graph=graph,
+                         generator=torch.Generator(device=DEVICE).manual_seed(0)))
+    same = bool(torch.equal(graph_eager[True], graph_eager[False]))
+    print(f"  bf16 top_k=1, {len(clips)} × 31 tokens: CUDA-graph step vs eager step "
+          f"identical: {same}")
+    check(same, "the CUDA-graph decode step and the eager one gave different tokens")
+
+    _, steps16, _ = stepwise(cfg16, model, batch16, tok, 2, 1.0)
+    cos = float(cosine_rows(steps16[:, 0].cpu().numpy(), steps32[:, 0].cpu().numpy()).min())
+    print(f"  bf16 vs fp32 first-step logits: min cosine {cos:.7f} (≥ {CAPTION_COS})")
+    check(cos >= CAPTION_COS, "bf16 decode logits disagree with fp32")
+
+    for graph in (True, False):
+        dec = caco.BatchDecoder(model, cfg16, batch16, max_length=DECODE_LEN,
+                                **decoder_kw(tok, temperature=1.0, cuda_graph=graph,
+                                             generator=torch.Generator(device=DEVICE)))
+        no_sync_window(dec)
+        print(f"  {caco.DECODE_WINDOW} {'graph' if graph else 'eager'} steps under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host sync")
+    return ({"caption": got["bf16"], "caption_fp32": got["fp32"],
+             "caption_fused_frontend": got["bf16_fused_frontend"]},
+            {"fp32_stepwise_rel": rel, "graph_equals_eager": same, "bf16_fp32_cosine": cos,
+             "captions_bf16": caps["bf16"]})
+
+
+def bench_patch_batch(cfg, n, seed):
+    """n 10-s buffers of 0.1·randn through the unfused frontend at 500
+    patches in cfg.dtype (bench.py's decode input, made outside the timing)."""
+    front = configs.FrontendConfig()
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    bufs = 0.1 * torch.randn(n, 10 * front.sample_rate, generator=g, device=DEVICE)
+    lens = torch.full((n,), 10 * front.sample_rate, dtype=torch.int32, device=DEVICE)
+    return wav_to_patches(bufs, lens, front, configs.PatchConfig(patches_seq_len=DECODE_PATCHES),
+                          dtype=cfg.dtype)
+
+
+@torch.inference_mode()
+def decode_rate_phase(cfg, model, tok, label):
+    """Phase 16b: decode_tokens_per_s at bench.py's shape, graph and eager."""
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    batch = bench_patch_batch(cfg16, DECODE_STREAMS, SEED)
+    print(f"phase 16b: decode_tokens_per_s, bf16, {DECODE_STREAMS} streams × {DECODE_LEN}, "
+          f"{DECODE_PATCHES} patches, T 1.0")
+
+    def call(graph, trial):
+        return caco.decode(model, cfg16, batch, max_length=DECODE_LEN,
+                           **decoder_kw(tok, temperature=1.0, cuda_graph=graph,
+                                        generator=torch.Generator(device=DEVICE)
+                                        .manual_seed(trial)))
+
+    out, got = drive(f"bf16 decode, {DECODE_STREAMS} streams", lambda: call(True, 0),
+                     {"k1_layer": cfg.audio.num_layers, "k2_block": 0})
+    check(out.shape == (DECODE_STREAMS, DECODE_LEN), f"decode ids {tuple(out.shape)}")
+    generated, total = int(out[:, 1:].ne(0).sum()), DECODE_STREAMS * (DECODE_LEN - 1)
+    # EOS is one id in 50 265: about 0.3 streams in a call end early, each
+    # leaving zeros behind it; ids of 0 everywhere else mean broken logits
+    check(generated >= 0.99 * total, f"decode wrote {generated} ids other than 0 of {total}")
+    rates = {"graph": [], "eager": []}
+    for graph in (True, False, False, True):
+        call(graph, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for trial in range(DECODE_TRIALS):
+            call(graph, trial + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates["graph" if graph else "eager"].append(
+            DECODE_STREAMS * (DECODE_LEN - 1) * DECODE_TRIALS / wall)
+
+    def build(graph):
+        return caco.BatchDecoder(model, cfg16, batch, max_length=DECODE_LEN,
+                                 **decoder_kw(tok, temperature=1.0, cuda_graph=graph,
+                                              generator=torch.Generator(device=DEVICE)))
+
+    parts, busy = {}, {}
+    for graph in (True, False):
+        mode = "graph" if graph else "eager"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        get_audio_embedding(model, cfg16, batch["audio_patches"], batch["audio_time_inds"],
+                            batch["audio_freq_inds"], batch["audio_mask"], normalize=False)
+        torch.cuda.synchronize()
+        audio_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dec = build(graph)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dec.run()
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3
+        parts[mode] = {"audio_pass_ms": audio_ms, "build_ms": build_ms, "steps_ms": steps_ms,
+                       "step_ms": steps_ms / (DECODE_LEN - 1)}
+        # the profiler sees the steps of a decoder built outside it (no
+        # capture under the profiler)
+        dec = build(graph)
+        b_ms, wall_ms, ops = device_busy_ms(dec.run, 1)
+        if not graph:
+            top = device_kernels(build(False).run)
+            print(f"  eager steps of one call, device time by operation: " + "; ".join(
+                f"{name[:60]} {ms:.2f} ms ×{n}" for name, ms, n in top))
+            parts[mode]["top_device_ops"] = top
+        del dec
+        busy[mode] = {"device_busy_ms": b_ms, "wall_ms": wall_ms,
+                      "idle_share": 1.0 - b_ms / wall_ms, "device_ops": ops}
+    torch.cuda.reset_peak_memory_stats()
+    call(True, 10)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for mode in ("graph", "eager"):
+        p, b = parts[mode], busy[mode]
+        print(f"  {mode}: decode_tokens_per_s {' / '.join(f'{r:.1f}' for r in rates[mode])} "
+              f"({DECODE_TRIALS} calls a trial, one sync at the end); one call: audio pass "
+              f"{p['audio_pass_ms']:.2f} ms, decoder built (audio pass, cross K/V, caches"
+              f"{', capture' if mode == 'graph' else ''}) in {p['build_ms']:.2f} ms, "
+              f"{DECODE_LEN - 1} steps {p['steps_ms']:.2f} ms ({p['step_ms']:.3f} ms a step); "
+              f"the steps profiled: device busy {b['device_busy_ms']:.2f} of {b['wall_ms']:.2f} ms, "
+              f"idle share {b['idle_share']:.3f}, {b['device_ops']:.0f} device operations "
+              f"({label})")
+    print(f"  peak device memory of one graph call {peak:.2f} GiB; ids other than 0 after BOS "
+          f"{generated} of {total} ({label})")
+    return got, {"decode_tokens_per_s": rates, "parts": parts, "busy": busy, "peak_gib": peak,
+                 "nonzero_tokens": generated}
+
+
+@torch.inference_mode()
+def continuous_phase(cfg, model, tok, clips, label):
+    """Phase 16c: continuous_tokens_per_s at bench.py's shape, and near-greedy
+    fp32 captions of 8 requests on 3 slots against batch decode."""
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    batch = bench_patch_batch(cfg16, DECODE_STREAMS, SEED + 1)
+    reqs = [{k: v[i:i + 1] for k, v in batch.items()} for i in range(DECODE_STREAMS)]
+    # "captions" that are the ids themselves, so the checks can read them
+    ids_tok = types.SimpleNamespace(bos_token_id=tok.bos_token_id, eos_token_id=tok.eos_token_id,
+                                    pad_token_id=tok.pad_token_id,
+                                    batch_decode=lambda ids, **kw: [" ".join(map(str, r))
+                                                                    for r in ids])
+    print(f"phase 16c: continuous_tokens_per_s, bf16, {len(reqs)} requests on {CONT_SLOTS} "
+          f"slots, drain_every {CONT_DRAIN}, max_length {DECODE_LEN}")
+
+    def serve(seed):
+        server = ContinuousCaptioner(cfg16, model, ids_tok, num_slots=CONT_SLOTS,
+                                     max_length=DECODE_LEN, temperature=1.0, seed=seed,
+                                     drain_every=CONT_DRAIN, device=DEVICE)
+        return server, server.run(reqs)
+
+    serve(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (server, caps), got = drive("continuous captioner", lambda: serve(1), {"k1_layer": None})
+    wall = time.perf_counter() - t0
+    check(len(caps) == len(reqs) and all(isinstance(c, str) for c in caps),
+          "continuous captioner: a request got no caption")
+    written = sum(sum(int(t) != 0 for t in c.split()[1:]) for c in caps)
+    check(written >= 0.99 * len(reqs) * (DECODE_LEN - 1),
+          f"continuous captioner wrote {written} ids other than 0")  # as in 16b
+    check(got["k1_layer"] % cfg.audio.num_layers == 0, "prefill K1 launches not whole passes")
+    rate = len(reqs) * (DECODE_LEN - 1) / wall
+    tokens = server.tokens_generated
+    print(f"  continuous_tokens_per_s {rate:.1f} ({wall * 1e3:.1f} ms; tokens actually "
+          f"generated {tokens} of {len(reqs) * (DECODE_LEN - 1)}, {written} of them other than "
+          f"0; prefill K1 launches "
+          f"{got['k1_layer']}, {got['k1_layer'] // cfg.audio.num_layers} encoder passes) ({label})")
+    del server, batch, reqs
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    engine32 = CacoEngine(cfg32, model, tokenizer=tok, device=DEVICE, batch_size=len(clips))
+    batch32, n = engine32.audio_patch_batch(clips)
+    length = 32
+    server = ContinuousCaptioner(cfg32, model, ids_tok, num_slots=3, max_length=length,
+                                 temperature=NEAR_GREEDY_T, seed=0, drain_every=8, device=DEVICE)
+    cont = server.run([{k: v[i:i + 1] for k, v in batch32.items()} for i in range(n)])
+    ids, logits, _ = stepwise(cfg32, model, batch32, tok, length, NEAR_GREEDY_T)
+    ids = ids.cpu().numpy()
+    gaps = []
+    for i, cap in enumerate(cont):
+        row, ref = [int(t) for t in cap.split()], ids[i].tolist()
+        end = ref.index(tok.eos_token_id, 1) + 1 if tok.eos_token_id in ref[1:] else len(ref)
+        diff = [t for t in range(1, end) if row[t] != ref[t]]
+        if diff:
+            top2 = torch.topk(logits[i, diff[0] - 1], 2).values
+            gaps.append(float(top2[0] - top2[1]))
+    print(f"  near-greedy fp32 (T {NEAR_GREEDY_T}), {n} requests on 3 slots vs batch decode: "
+          f"{n - len(gaps)} equal; top-two logit gaps where they first differ: {gaps} "
+          f"(< {NEAR_TIE_GAP})")
+    check(all(g < NEAR_TIE_GAP for g in gaps),
+          "continuous captions differ from batch decode away from a near tie")
+    return got, {"continuous_tokens_per_s": rate, "wall_ms": wall * 1e3,
+                 "tokens_generated": tokens, "nonzero_ids": written, "near_greedy_gaps": gaps,
+                 "near_greedy_equal": n - len(gaps)}
+
+
+def gallery_phase(label):
+    """Phase 16d: GalleryIndex at 262 144 × 768 fp32 on the card against numpy."""
+    rs = np.random.default_rng(SEED)
+    rows = rs.standard_normal((GALLERY_ROWS, GALLERY_DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+    queries = rows[rs.choice(GALLERY_ROWS, GALLERY_QUERIES, replace=False)] + \
+        0.05 * rs.standard_normal((GALLERY_QUERIES, GALLERY_DIM), dtype=np.float32)
+    dead = rs.choice(GALLERY_ROWS, GALLERY_ROWS // 100, replace=False)
+    scale = 1.7
+    print(f"phase 16d: GalleryIndex, {GALLERY_ROWS} × {GALLERY_DIM} fp32 (slab {GALLERY_SLAB}), "
+          f"{len(dead)} deleted, {GALLERY_QUERIES} queries, top-10")
+    g = GalleryIndex(GALLERY_DIM, logit_scale=scale, slab=GALLERY_SLAB, device=DEVICE)
+    part = GALLERY_ROWS // 4
+    for i in range(0, GALLERY_ROWS, part):
+        g.add(rows[i:i + part])
+    check(g.capacity == GALLERY_ROWS and g.size == GALLERY_ROWS,
+          f"gallery capacity {g.capacity}, size {g.size}")
+    g.delete(dead)
+    g.delete(dead[:10])  # idempotent
+    check(g.num_deleted == len(dead), f"gallery counts {g.num_deleted} deleted rows")
+    scores, idx, _ = g.search(queries, k=10)
+    ref = np.float32(np.exp(np.float32(scale))) * queries @ rows.T
+    ref[:, dead] = -np.inf
+    top = np.argpartition(-ref, 10, axis=1)[:, :10]
+    order = np.argsort(-np.take_along_axis(ref, top, 1), axis=1, kind="stable")
+    ref_idx = np.take_along_axis(top, order, 1)
+    ref_scores = np.take_along_axis(ref, ref_idx, 1)
+    same = bool(np.array_equal(idx, ref_idx))
+    err = float(np.abs(scores - ref_scores).max())
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.search(queries, k=10)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_gallery_")
+    try:
+        path = os.path.join(tmp, "gallery.npz")
+        g.save(path)
+        loaded = GalleryIndex.load(path, device=DEVICE)
+        s2, i2, _ = loaded.search(queries, k=10)
+        round_trip = bool(np.array_equal(i2, idx) and np.array_equal(s2, scores)
+                          and loaded.num_deleted == g.num_deleted)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"  indices equal to numpy: {same}; max |score - numpy| {err:.2e} (≤ {GALLERY_ATOL}); "
+          f"save / load round trip identical: {round_trip}; search "
+          f"{' / '.join(f'{m:.2f}' for m in sorted(ms))} ms ({GALLERY_QUERIES} queries, host "
+          f"copies included; {label})")
+    check(same and err <= GALLERY_ATOL, "gallery search disagrees with numpy")
+    check(round_trip, "gallery save / load changed the search")
+    return {"indices_equal": same, "max_abs_err": err, "search_ms": sorted(ms),
+            "round_trip": round_trip}
+
+
 def clips_per_s(engine, wavs, runs=2):
     engine.embed_audio(wavs[:BATCH])  # warm
     rates = []
@@ -2192,6 +2584,11 @@ def run() -> dict:
     print(f"  fp32 10-s training step {np.median(train_fp32['step_ms']):.2f} ms/step (median of 3, "
           f"B={TRAIN_BATCH}); bf16 30-s step {np.median(train_30['step_ms']):.2f} ms/step (median "
           f"of 3, B={TRAIN_BATCH_30}), peak {train_30['peak_gib']:.2f} GiB ({label})")
+    caption_launches, caption = caption_engine_phase(cfg, model, tok, wavs, label)
+    caption_launches["decode"], caption["decode"] = decode_rate_phase(cfg, model, tok, label)
+    caption_launches["prefill"], caption["continuous"] = continuous_phase(
+        cfg, model, tok, wavs[:CAPTION_CLIPS], label)
+    caption["gallery"] = gallery_phase(label)
     ckpt_launches, ckpt = checkpoint_phase(cfg, model, wavs, a_emb, tok)
     del engine, engine30, model
     tmp = tempfile.mkdtemp(prefix="caco_smoke_runner_")
@@ -2229,12 +2626,21 @@ def run() -> dict:
     # forward, K2 an fp32 one, K4 and K7 over MAE_STEPS bf16 steps
     mae_path = {"K1": recon_launches["bf16"], "K2": recon_launches["fp32"],
                 "K4": step_launches["bfloat16"], "K7": step_launches["bfloat16"]}
+    # launches on the captioning paths (phase 16): K1 / K2 / K8 in one
+    # CacoEngine.caption audio pass (bf16, fp32, bf16 with the fused
+    # frontend); K1 in one 256-stream decode call and in the continuous
+    # captioner's prefill
+    caption_path = {"K1": caption_launches["caption"], "K2": caption_launches["caption_fp32"],
+                    "K8": caption_launches["caption_fused_frontend"]}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": path[name][key], "max_abs_err": errs[err_key[name]],
                 "ms": times[time_key[name]][0], "plain_ms": times[time_key[name]][1],
                 "bound_ms": bounds[time_key[name]][0], "bound_by": bounds[time_key[name]][1],
                 "library_ms": links[lib_key[name]]["library_ms"] if name in lib_key else None,
-                "mae_launches": mae_path[name][key] if name in mae_path else 0}
+                "mae_launches": mae_path[name][key] if name in mae_path else 0,
+                "caption_launches": caption_path[name][key] if name in caption_path else 0,
+                "decode_launches": caption_launches["decode"][key],
+                "prefill_launches": caption_launches["prefill"][key]}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -2270,6 +2676,7 @@ def run() -> dict:
                                  "runner_mae_k4": stage1_launches["runner_mae"]["k4"],
                                  "runner_mae_k7": stage1_launches["runner_mae"]["k7"],
                                  "runner_init_k4": stage1_launches["runner_init"]["k4"]}},
+            "caption": caption,
             "gpu": label}
 
 

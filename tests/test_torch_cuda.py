@@ -20,7 +20,10 @@ through K1, and two steps of `train.runner.main` at caco_tiny in bf16 (K4
 and K7 launch counts); the stage-1 AudioMAE at audiomae_base widths with
 one layer a tower (the reconstruction forward's routes against the CPU,
 one loss and backward's K4 / K7 counts, fp32 against the CPU),
-`load_audiomae` onto the card and two steps of `runner --stage mae`.
+`load_audiomae` onto the card and two steps of `runner --stage mae`;
+greedy fp32 decode at caco_tiny on the card (the step as a CUDA graph and
+eager) against the CPU token for token, and gallery search on the card
+against the CPU.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -1001,3 +1004,63 @@ def test_mae_runner_two_steps_on_the_card(cuda, tmp_path):
     assert state.step == 2 and next(state.params.parameters()).device.type == "cuda"
     losses = [json.loads(line)["loss"] for line in open(os.path.join(work, "metrics.jsonl"))]
     assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+def _tiny_caption_model(seed):
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.models.caco import caco_init
+
+    cfg = configs.caco_tiny(vocab_size=300)
+    return cfg, caco_init(cfg, torch.Generator().manual_seed(seed))
+
+
+def _tiny_patches(b, s, seed):
+    rs = np.random.RandomState(seed)
+    lengths = rs.randint(s // 3, s + 1, size=b)
+    mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+    inds = np.arange(s, dtype=np.int32)[None, :] * mask
+    return {"audio_patches": torch.from_numpy((rs.randn(b, s, 256) * mask[..., None])
+                                              .astype(np.float32)),
+            "audio_time_inds": torch.from_numpy(inds // 8),
+            "audio_freq_inds": torch.from_numpy(inds % 8),
+            "audio_mask": torch.from_numpy(mask)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuda_graph", [True, False])
+def test_greedy_decode_on_the_card_matches_cpu(cuda, cuda_graph):
+    """fp32 top_k=1 decode at caco_tiny: the card (K2 in the audio pass; the
+    step as a CUDA graph or eager) gives the CPU's ids token for token."""
+    from cacophony_tpu_torch.models.caco import decode
+
+    cfg, model = _tiny_caption_model(11)
+    batch = _tiny_patches(6, 32, 11)
+    kw = dict(max_length=24, temperature=1.0, bos_id=0, eos_id=2, pad_id=1, top_k=1)
+    with torch.inference_mode():
+        ref = decode(model, cfg, batch, generator=torch.Generator().manual_seed(0), **kw)
+        model = model.to(cuda)
+        got = decode(model, cfg, {k: v.to(cuda) for k, v in batch.items()},
+                     generator=torch.Generator(device=cuda).manual_seed(0),
+                     cuda_graph=cuda_graph, **kw)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_gallery_search_on_the_card_matches_cpu(cuda):
+    """Top-k search over 20 000 rows with 1 % deleted: the same rows in the
+    same order, scores within 1e-5 (TF32 off)."""
+    from cacophony_tpu_torch.runtime.gallery import GalleryIndex
+
+    rs = np.random.RandomState(13)
+    rows = rs.randn(20_000, 64).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+    dead = rs.choice(20_000, 200, replace=False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = GalleryIndex(64, logit_scale=1.2, slab=4096, device=dev)
+        for i in range(0, 20_000, 3000):
+            g.add(rows[i:i + 3000])
+        g.delete(dead)
+        out[dev] = g.search(rows[:32], k=10)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
