@@ -154,13 +154,43 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    parts (capacity grows past its 131 072-row slab), 1 % deleted, 1024
    queries, top-10 against numpy (indices equal, scores to 1e-5), a save /
    load round trip, ms per search.
+17. eval and HEAR, the user's entry points called in process with
+   `--device cuda`, on caco_base and audiomae_base files written from
+   seeds (released layout, strict counts) and the byte-level tokenizer:
+   (a) `python -m cacophony_tpu_torch.eval` on a synthetic ESC-50 (5
+   categories × 8 clips of 2-5 s, 44.1-kHz PCM16: two buckets of 32, the
+   second ragged): zs fp32 (K2 12 a bucket) and bf16 (K1 12 a bucket),
+   top-1 in [0, 1], clips/s with the host decode; `--expect` on a golden
+   of the run's own top-1 passes and, moved past its atol, exits non-zero;
+   on a synthetic Clotho (40 clips of 15-30 s, 5 captions each): ar bf16
+   (the 30-s engine at 1536 patches: K3 12 a bucket) and fp32 (the einsum
+   route: no K1-K3), the metrics recomputed with numpy from the engine's
+   own embeddings and scores; caption bf16 (K3 12 in each bucket's audio
+   pass), predictions.csv / gt.csv in the reference's format, one row a
+   clip; (b) `hear.runner.run` (caco and audiomae) on a scene task
+   (multiclass, 3 labels, 32 / 16 / 16 clips of 2-10 s) and an event task
+   (10-s clips, 6 / 4 / 4), batches of 8 at 500 patches in fp32 (K2 12 a
+   batch): scene 768-d, event (62, 768) a clip at linspace(0, 10000, 62)
+   ms, all finite; 2 clips' scene embeddings against the CPU's plain path
+   (cosine >= 0.9999); K2 on the first layer's real inputs against its
+   plain version on the padded rows; `predictions_runner.run(grid="faster")`
+   with every probe on the card, the result files, every score in its
+   range, scikit-learn never imported; (c) the rates, warm (after (a) and
+   (b) in this process), two runs of each in turns: zs fp32 and bf16 on 400
+   ESC-50-shaped clips (5 s at 44.1 kHz, 40 in each of 10 categories) and
+   the host's read and resample of 32 of them alone; `hear.runner.run`
+   (caco, audiomae) on a 5-fold scene task of 5 × 48 clips of 5 s (the
+   size of HEAR's Beijing Opera Percussion), then
+   `predictions_runner.run(grid="faster")` over its two folders, each fold
+   scored.  The temporary directory is deleted.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′; `mae_launches` counts
 phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps;
 `caption_launches` phase 16a's in one caption call: K1 bf16, K2 fp32, K8
 with the fused frontend; `decode_launches` and `prefill_launches` phase 16b's
-256-stream decode call and 16c's continuous run); the last line is
+256-stream decode call and 16c's continuous run; `eval_launches` and
+`hear_launches` phase 17's eval CLI runs and HEAR runner runs); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -190,14 +220,20 @@ from cacophony_tpu_torch import configs
 from cacophony_tpu_torch.checkpoints import bridge, convert, msgpack
 from cacophony_tpu_torch.checkpoints import io as ckpt_io
 from cacophony_tpu_torch.data import pipeline
+from cacophony_tpu_torch.data.audio_io import load_audio
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
+from cacophony_tpu_torch.eval import cli as eval_cli
 from cacophony_tpu_torch.frontend import fused
 from cacophony_tpu_torch.frontend.patchify import (
     num_patches_for_samples,
     patchify_spectrogram,
     wav_to_patches,
 )
+from cacophony_tpu_torch.hear import embeddings as hear_emb
+from cacophony_tpu_torch.hear import predictions as hear_pred
+from cacophony_tpu_torch.hear import predictions_runner
+from cacophony_tpu_torch.hear import runner as hear_runner
 from cacophony_tpu_torch.models import caco
 from cacophony_tpu_torch.models.audio import (
     LN_EPS,
@@ -1596,15 +1632,22 @@ def write_runner_data(root: str, rs):
     return data, tok
 
 
+def echoed(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output captured and echoed (also
+    when it raises) → (its result, the output)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kw)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"    | {line}")
+    return result, buf.getvalue()
+
+
 def run_main(argv):
     """runner.main(argv) with its standard output captured and echoed."""
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        state = runner.main(argv)
-    out = buf.getvalue()
-    for line in out.splitlines():
-        print(f"    | {line}")
-    return state, out
+    return echoed(runner.main, argv)
 
 
 def runner_phase(cfg, label, tmp, data, tok):
@@ -2404,6 +2447,501 @@ def gallery_phase(label):
             "round_trip": round_trip}
 
 
+# Eval and HEAR (phase 17): the evaluation CLI and the two HEAR runners in
+# process, on the card, at caco_base / audiomae_base width with random
+# weights written as released-layout files.  ESC-50: 5 categories × 8 clips
+# of 2-5 s at 44.1 kHz (two buckets of 32, the second ragged); Clotho: 40
+# clips of 15-30 s at 16 kHz with 5 captions each; HEAR: a scene task
+# (multiclass, 3 labels, 32 / 16 / 16 clips of 2-10 s) and the event task
+# of tests/test_hear.py:381-436 at 10 s (6 / 4 / 4 clips).  The rates
+# (phase 17c) are taken warm, after those runs in the same process: zs on
+# ESC-50's own clip shape (5 s, 44.1 kHz PCM16 mono) and per-category count
+# (40) in 10 of its 50 categories; the HEAR runners and the probe trainer on
+# a 5-fold scene task of Beijing Opera Percussion's size (HEAR 2021: 236
+# clips, 4 labels, top-1 accuracy), 5 × 48 clips of 5 s at 16 kHz.
+ESC_CATEGORIES = ("dog", "rain", "siren", "crying baby", "church bells")
+RATE_ESC_CATEGORIES = ESC_CATEGORIES + ("rooster", "sea waves", "clock tick", "helicopter",
+                                        "chainsaw")
+ESC_PER_CATEGORY, CLOTHO_CLIPS = 8, 40
+RATE_ESC_PER_CATEGORY, RATE_HEAR_FOLDS, RATE_HEAR_PER_FOLD, RATE_RUNS = 40, 5, 48, 2
+HEAR_SCENE_SPLITS = {"train": 32, "valid": 16, "test": 16}
+HEAR_EVENT_SPLITS = {"train": 6, "valid": 4, "test": 4}
+HEAR_BATCH = 8
+HEAR_SCENE_SCORES = ["top1_acc", "mAP", "d_prime", "aucroc"]
+# The fp32 HEAR forward on the card against the CPU's plain path: cosine of
+# the scene embeddings, the serving path's fp32 bound (phase 6).
+COS_HEAR = 0.9999
+
+
+def write_pcm16(path, sr, x):
+    from scipy.io import wavfile
+
+    wavfile.write(path, sr, (np.clip(x, -1.0, 1.0) * 32767).astype(np.int16))
+
+
+def write_esc50(esc, rs, categories, per_category, seconds):
+    """The ESC-50 layout that eval/processors.py reads: per_category clips
+    at 44.1 kHz of each category, seconds() long."""
+    os.makedirs(os.path.join(esc, "audio"))
+    rows = [["filename", "fold", "target", "category"]]
+    for c, cat in enumerate(categories):
+        for k in range(per_category):
+            name = f"{1 + k % 5}-{100 * c + k}-A-{c}.wav"
+            write_pcm16(os.path.join(esc, "audio", name), 44100,
+                        0.1 * rs.randn(int(seconds() * 44100)))
+            rows.append([name, str(1 + k % 5), str(c), cat])
+    with open(os.path.join(esc, "esc50.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return esc
+
+
+def write_eval_data(root, rs):
+    """The ESC-50 and Clotho layouts that eval/processors.py reads."""
+    esc = write_esc50(os.path.join(root, "esc50"), rs, ESC_CATEGORIES, ESC_PER_CATEGORY,
+                      lambda: rs.uniform(2, 5))
+    clotho = os.path.join(root, "clotho")
+    os.makedirs(os.path.join(clotho, "evaluation"))
+    rows = [["file_name"] + [f"caption_{j}" for j in range(1, 6)]]
+    for i in range(CLOTHO_CLIPS):
+        name = f"clip_{i:02d}.wav"
+        write_pcm16(os.path.join(clotho, "evaluation", name), 16000,
+                    0.1 * rs.randn(int(rs.uniform(15, 30) * 16000)))
+        rows.append([name] + [f"sound {i} of the set heard in take {j}" for j in range(5)])
+    with open(os.path.join(clotho, "clotho_captions_evaluation.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return esc, clotho
+
+
+def write_hear_task(tasks, task, kind, ptype, splits, scores, labels, rs, seconds,
+                    duration=10.0):
+    """One task in the HEAR layout (hear/runner.py): splits maps a split to
+    its clip count, each clip 16 kHz and seconds() long."""
+    path = os.path.join(tasks, task)
+    os.makedirs(path)
+    with open(os.path.join(path, "task_metadata.json"), "w") as f:
+        json.dump({"task_name": task.split("-")[0], "embedding_type": kind,
+                   "prediction_type": ptype, "splits": list(splits), "evaluation": scores,
+                   "sample_duration": duration}, f)
+    with open(os.path.join(path, "labelvocabulary.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([["idx", "label"]] + [[str(i), l] for i, l in enumerate(labels)])
+    for split, n in splits.items():
+        os.makedirs(os.path.join(path, "16000", split))
+        meta = {}
+        for i in range(n):
+            name = f"{split}_{i:02d}.wav"
+            write_pcm16(os.path.join(path, "16000", split, name), 16000,
+                        0.1 * rs.randn(int(seconds() * 16000)))
+            label = labels[i % len(labels)]
+            meta[name] = ([label] if kind == "scene" else
+                          [{"label": label, "start": 0.0, "end": 900.0},
+                           {"label": label, "start": 1200.0, "end": 1800.0}])
+        with open(os.path.join(path, f"{split}.json"), "w") as f:
+            json.dump(meta, f)
+
+
+def write_hear_tasks(root, rs):
+    """A scene task and an event task in the HEAR layout (hear/runner.py)."""
+    tasks = os.path.join(root, "tasks")
+    write_hear_task(tasks, "scene-v1.0.0-full", "scene", "multiclass", HEAR_SCENE_SPLITS,
+                    HEAR_SCENE_SCORES, ("dog", "rain", "siren"), rs, lambda: rs.uniform(2, 10))
+    write_hear_task(tasks, "event-v1.0.0-full", "event", "multilabel", HEAR_EVENT_SPLITS,
+                    ["segment_1s_er", "event_onset_200ms_fms"], ("beep", "hiss"), rs,
+                    lambda: 10.0)
+    return tasks
+
+
+def numpy_retrieval(sim, n_caps):
+    """R@1/5/10 and mAP@10 both ways from an (audio, text) score matrix
+    whose text j describes audio j // n_caps (every caption distinct)."""
+    n_audio, n_text = sim.shape
+    owner = np.arange(n_text) // n_caps
+    ta = np.argsort(-sim.T, axis=-1)[:, :10] == owner[:, None]
+    at = owner[np.argsort(-sim, axis=-1)[:, :10]] == np.arange(n_audio)[:, None]
+    out = {}
+    for name, hits in (("text_to_audio", ta), ("audio_to_text", at)):
+        ranks = np.arange(1, 11)
+        ap = [float((np.cumsum(h)[h] / ranks[h]).mean()) if h.any() else 0.0 for h in hits]
+        out[name] = {"R1": hits[:, :1].any(1).mean(), "R5": hits[:, :5].any(1).mean(),
+                     "R10": hits.any(1).mean(), "mAP10": float(np.mean(ap))}
+    return out
+
+
+@contextlib.contextmanager
+def environ(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def spy(cls, name, record):
+    """Wrap cls.name so that each call appends (self, args, result) to record."""
+    orig = getattr(cls, name)
+
+    def wrapped(self, *args, **kw):
+        out = orig(self, *args, **kw)
+        record.append((self, args, out))
+        return out
+
+    setattr(cls, name, wrapped)
+    try:
+        yield record
+    finally:
+        setattr(cls, name, orig)
+
+
+def read_json(*parts):
+    with open(os.path.join(*parts)) as f:
+        return json.load(f)
+
+
+def stage_seconds(out: str, stage: str) -> float:
+    """A StageTimer stage's seconds from a captured report."""
+    line = next(l for l in out.splitlines() if l.startswith(f"{stage}: "))
+    return float(line.split()[1].rstrip("s"))
+
+
+def write_models(tmp):
+    """caco_base and audiomae_base from seeds, as released-layout files (as
+    phases 14a and 15c write them) → (caco dir, stage-1 dir)."""
+    cfg = configs.caco_base()
+    t0 = time.perf_counter()
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED + 17))
+    ref = convert.caco_params_to_reference(bridge.params_to_jax(model), cfg.audio.num_heads)
+    caco_dir = os.path.join(tmp, "caco")
+    msgpack.save_checkpoint(caco_dir, {"0": {"params": ref}}, step=0)
+    del model, ref
+    mcfg = configs.audiomae_base()
+    mae = audiomae_init(mcfg.encoder, mcfg.decoder, torch.Generator().manual_seed(SEED + 18))
+    ref = convert.audiomae_params_to_reference(bridge.params_to_jax(mae), mcfg.encoder.num_heads,
+                                               mcfg.decoder.num_heads)
+    mae_dir = os.path.join(tmp, "mae")
+    msgpack.save_checkpoint(mae_dir, {"0": {"params": ref}}, step=0)
+    del mae, ref
+    print(f"  caco_base and audiomae_base from seeds {SEED + 17} / {SEED + 18}, written as "
+          f"released-layout files in {time.perf_counter() - t0:.1f} s")
+    return caco_dir, mae_dir
+
+
+def eval_phase(cfg, caco_dir, tok_dir, esc, clotho, tmp, label):
+    """Phase 17a: `python -m cacophony_tpu_torch.eval` in process on the card."""
+    n = cfg.audio.num_layers
+    n_esc = len(ESC_CATEGORIES) * ESC_PER_CATEGORY
+    zs_buckets = -(-n_esc // BATCH)
+    ar_buckets = -(-CLOTHO_CLIPS // BATCH)
+    none = {"k3_layer": 0, "k6_attn": 0, "log_mel": 0, "log_mel_fast": 0}
+    base = ["--ckpt_path", caco_dir, "--tokenizer", tok_dir, "--batch_size", str(BATCH),
+            "--device", DEVICE]
+    zs = base + ["--task", "zs", "--dataset", "esc50"]
+    clo = base + ["--dataset", "clotho"]
+    launches, out = {}, {}
+    with environ(CACOPHONY_ESC50_DIR=esc, CACOPHONY_CLOTHO16K_DIR=clotho):
+        for dt, expect in (("float32", {"k2_block": n * zs_buckets, "k1_layer": 0, "k3_block": 0}),
+                           ("bfloat16", {"k1_layer": n * zs_buckets, "k2_block": 0,
+                                         "k3_block": 0})):
+            path = os.path.join(tmp, f"zs_{dt}.json")
+            t0 = time.perf_counter()
+            (res, text), launches[f"zs_{dt}"] = drive(
+                f"eval --task zs --dtype {dt}",
+                lambda: echoed(eval_cli.main, zs + ["--dtype", dt, "--output_json", path]),
+                {**expect, **none})
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                saved = json.load(f)
+            acc = res["esc50"]
+            check(saved == {"task": "zs", "top1_accuracy": res} and 0.0 <= acc <= 1.0,
+                  f"zs {dt}: results {res}, file {saved}")
+            decode_embed = stage_seconds(text, "decode_embed_stream")
+            rate = n_esc / decode_embed
+            out[f"zs_{dt}"] = {"top1": acc, "wall_s": wall, "decode_embed_s": decode_embed,
+                               "clips_per_s": rate}
+            print(f"  zs {dt}: top-1 {acc:.4f}; decode + embed of {n_esc} "
+                  f"clips {decode_embed:.3f} s = {rate:.1f} clips/s (host decode and "
+                  f"the 44.1 → 16 kHz resample included); the CLI {wall:.2f} s ({label})")
+        acc = out["zs_float32"]["top1"]
+        golden = os.path.join(tmp, "golden.json")
+        with open(golden, "w") as f:
+            json.dump({"atol": 1e-9, "expect": {"esc50": acc}}, f)
+        echoed(eval_cli.main, zs + ["--expect", golden])
+        with open(golden, "w") as f:
+            json.dump({"atol": 0.01, "expect": {"esc50": acc + 0.5 if acc < 0.5 else acc - 0.5}}, f)
+        try:
+            echoed(eval_cli.main, zs + ["--expect", golden])
+            exited = None
+        except SystemExit as e:
+            exited = e.code
+        print(f"  --expect with the run's own top-1: passed; one value moved past its atol: "
+              f"SystemExit({exited!r})")
+        check(exited not in (None, 0), "the --expect gate did not fail on a drifted value")
+
+        for dt, expect in (("bfloat16", {"k3_block": n * ar_buckets, "k1_layer": 0,
+                                         "k2_block": 0}),
+                           ("float32", {"k1_layer": 0, "k2_block": 0, "k3_block": 0})):
+            scores = []
+            t0 = time.perf_counter()
+            with spy(CacoEngine, "score", scores):
+                (res, _), launches[f"ar_{dt}"] = drive(
+                    f"eval --task ar --dataset clotho --dtype {dt}"
+                    + (" (the einsum route)" if dt == "float32" else ""),
+                    lambda: echoed(eval_cli.main, clo + ["--task", "ar", "--dtype", dt]),
+                    {**expect, **none})
+            wall = time.perf_counter() - t0
+            (_, (a, t), sim), = scores
+            check(a.shape == (CLOTHO_CLIPS, cfg.projection_size) and sim.shape == (
+                CLOTHO_CLIPS, 5 * CLOTHO_CLIPS), f"ar {dt}: shapes {a.shape}, {sim.shape}")
+            check(np.allclose(sim, np.exp(cfg.logit_scale_init) * (a.astype(np.float64) @ t.T),
+                              rtol=1e-4, atol=1e-4), f"ar {dt}: score is not exp(s)·A@Tᵀ")
+            ref = numpy_retrieval(sim, 5)
+            diff = max(abs(res[d][m]["estimate"] - ref[d][m]) for d in ref for m in ref[d])
+            print(f"  ar {dt}: t→a R1 {res['text_to_audio']['R1']['estimate']:.4f}, a→t R1 "
+                  f"{res['audio_to_text']['R1']['estimate']:.4f}; numpy from the engine's "
+                  f"embeddings: max |Δ| {diff:.1e}; the CLI {wall:.2f} s ({label})")
+            check(diff <= 1e-12, f"ar {dt}: the task's metrics disagree with numpy's")
+            out[f"ar_{dt}"] = {"wall_s": wall, "numpy_max_diff": diff,
+                               "t2a_R1": res["text_to_audio"]["R1"]["estimate"]}
+
+        caps = os.path.join(tmp, "captions")
+        t0 = time.perf_counter()
+        ((preds, gts), _), launches["caption_bfloat16"] = drive(
+            "eval --task caption --dataset clotho --dtype bfloat16",
+            lambda: echoed(eval_cli.main, clo + ["--task", "caption", "--dtype", "bfloat16",
+                                                 "--output_dir", caps]),
+            {"k3_block": n * ar_buckets, "k1_layer": 0, "k2_block": 0, **none})
+        wall = time.perf_counter() - t0
+    with open(os.path.join(caps, "predictions.csv")) as f:
+        pred_csv = f.read()
+    with open(os.path.join(caps, "gt.csv")) as f:
+        gt_lines = f.read().splitlines()
+    check(len(preds) == len(gts) == CLOTHO_CLIPS and pred_csv == "file_name,caption_predicted\n"
+          + "".join(f"{i},{p}\n" for i, p in enumerate(preds)),
+          "predictions.csv is not the reference's format with one row per clip")
+    check(gt_lines[0] == "file_name," + ",".join(f"caption_reference_{i:02d}" for i in range(1, 6))
+          and len(gt_lines) == CLOTHO_CLIPS + 1, f"gt.csv: {gt_lines[:2]}, {len(gt_lines)} lines")
+    print(f"  caption: {len(preds)} clips in {ar_buckets} engine buckets (max 100, T 0.1), the "
+          f"first {preds[0][:40]!r}; predictions.csv / gt.csv in the reference's format; the CLI "
+          f"{wall:.2f} s ({label})")
+    out["caption_bfloat16"] = {"wall_s": wall}
+    return launches, out
+
+
+def hear_phase(cfg, caco_dir, mae_dir, root, label):
+    """Phase 17b: hear.runner (caco, audiomae) and hear.predictions_runner
+    in process on the card."""
+    n = cfg.audio.num_layers
+    tasks = write_hear_tasks(root, np.random.RandomState(SEED + 19))
+    emb_root = os.path.join(root, "embeddings")
+    batches = sum(-(-k // HEAR_BATCH) for s in (HEAR_SCENE_SPLITS, HEAR_EVENT_SPLITS)
+                  for k in s.values())
+    clips = sum(HEAR_SCENE_SPLITS.values()) + sum(HEAR_EVENT_SPLITS.values())
+    launches, out = {}, {}
+    for name, path in (("caco", caco_dir), ("audiomae", mae_dir)):
+        t0 = time.perf_counter()
+        _, launches[name] = drive(
+            f"hear.runner --embedding-name {name}, {batches} batches of ≤ {HEAR_BATCH}",
+            lambda: echoed(hear_runner.run, path, tasks, emb_root, embedding_name=name,
+                           batch_size=HEAR_BATCH, device=DEVICE),
+            {"k2_block": n * batches, "k1_layer": 0, "k3_block": 0, "k3_layer": 0})
+        wall = time.perf_counter() - t0
+        embed_s = sum(read_json(emb_root, name, t, "profile.embeddings.json")["time_elapsed"]
+                      for t in os.listdir(tasks))
+        out[name] = {"wall_s": wall, "embed_s": embed_s, "clips_per_s": clips / embed_s}
+        print(f"  {name}: {clips} clips embedded in {embed_s:.2f} s = {clips / embed_s:.1f} "
+              f"clips/s (host decode included; {wall:.2f} s with the model's load) ({label})")
+        for task in os.listdir(tasks):
+            d = os.path.join(emb_root, name, task)
+            meta = read_json(d, "task_metadata.json")
+            for split in meta["splits"]:
+                rows, dim = read_json(d, f"{split}.embedding-dimensions.json")
+                mm = np.memmap(os.path.join(d, f"{split}.embeddings.npy"), dtype=np.float32,
+                               mode="r", shape=(rows, dim))
+                check(dim == 768 and bool(np.isfinite(mm).all()),
+                      f"{name}/{task}/{split}: dim {dim} or non-finite embeddings")
+            if meta["embedding_type"] == "event":
+                clip = os.path.join(d, "test", "test_00.wav")
+                emb = np.load(clip + ".embedding.npy")
+                ts = read_json(clip + ".timestamps.json")
+                check(emb.shape == (62, 768) and np.array_equal(ts, np.linspace(0, 10000, 62)),
+                      f"{name} event: {emb.shape}, timestamps {ts[:3]}…")
+        print(f"  {name}: scene 768-d, event (62, 768) a clip at linspace(0, 10000, 62) ms, "
+              f"all finite")
+
+    # the card's fp32 forward against the CPU's plain path, on 2 clips
+    scene = os.path.join(tasks, "scene-v1.0.0-full", "16000", "test")
+    names = sorted(os.listdir(scene))[:2]
+    paths = [os.path.join(scene, f) for f in names]
+    cos = {}
+    for name, path, load, cls in (
+            ("caco", caco_dir, ckpt_io.load_caco, hear_emb.CacoHearEmbedder),
+            ("audiomae", mae_dir, ckpt_io.load_audiomae, hear_emb.AudioMAEHearEmbedder)):
+        mcfg, model = load(path, device="cpu")
+        ref = cls(mcfg, model).scene_embeddings(paths)
+        got = np.stack([np.load(os.path.join(emb_root, name, "scene-v1.0.0-full", "test",
+                                             f + ".embedding.npy")) for f in names])
+        cos[name] = float(cosine_rows(got, ref).min())
+        if name == "caco":
+            pad_err = padded_rows_check(mcfg, model, paths)
+        del model
+    print(f"  scene embeddings on the card vs the CPU's plain path (2 clips, min cosine): "
+          f"caco {cos['caco']:.7f}, audiomae {cos['audiomae']:.7f} (≥ {COS_HEAR})")
+    check(min(cos.values()) >= COS_HEAR, "HEAR embeddings on the card disagree with the CPU")
+
+    trained = []
+    t0 = time.perf_counter()
+    with spy(hear_pred.MLPProbe, "train_batch", trained):
+        echoed(predictions_runner.run, emb_root, grid="faster", device=DEVICE)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    devices = {str(next(probe.parameters()).device) for probe, _, _ in trained}
+    print(f"  predictions_runner --grid faster: {pred_s:.2f} s for 4 task folders, "
+          f"{len(trained)} probe steps, probes on {sorted(devices)} ({label})")
+    check(trained and devices == {"cuda:0"}, f"the probes trained on {devices}")
+    tests = {}
+    for name in ("caco", "audiomae"):
+        for task in sorted(os.listdir(tasks)):
+            d = os.path.join(emb_root, name, task)
+            check(os.path.exists(os.path.join(d, "prediction-done.json")), f"{d}: not done")
+            res = read_json(d, "test.predicted-scores.json")["test"]
+            meta = read_json(d, "task_metadata.json")
+            check(set(res) == set(meta["evaluation"]), f"{d}: scores {sorted(res)}")
+            for score, v in res.items():
+                ok = (np.isfinite(v) if score == "d_prime" else
+                      v >= 0.0 if score == "segment_1s_er" else 0.0 <= v <= 1.0)
+                check(bool(ok), f"{name}/{task}: {score} = {v} outside its range")
+            tests[f"{name}/{task.split('-')[0]}"] = res
+    print(f"  test scores: {json.dumps(tests)}")
+    check("sklearn" not in sys.modules, "scikit-learn was imported")
+    print("  scikit-learn was never imported")
+    out.update(prediction_s=pred_s, probe_steps=len(trained), cosine_cpu=cos,
+               padded_rows_max_abs_err=pad_err, test_scores=tests)
+    return launches, out
+
+
+@torch.inference_mode()
+def padded_rows_check(cfg, cpu_model, paths):
+    """K2 on the first layer's real inputs at 500 patches, clips of 2-10 s
+    padded to 10 s, against its plain version on the card: the padded query
+    rows (which the event pool averages) included."""
+    model = copy.deepcopy(cpu_model).to(DEVICE)
+    emb = hear_emb.CacoHearEmbedder(cfg, model)
+    batch = emb._batch(paths)
+    mask = batch["audio_mask"]
+    x = audio_input_embedding(model.audio, cfg.audio, batch["audio_patches"],
+                              batch["audio_time_inds"], batch["audio_freq_inds"], torch.float32)
+    blk, heads = model.audio.blocks[0], cfg.audio.num_heads
+    got = ea.fused_block_attention(blk, x, mask, heads, LN_EPS, ("one_shot",))
+    ref = ea.fused_block_attention_plain(blk, x, mask, heads, LN_EPS, ("one_shot",))
+    pad = mask == 0
+    check(bool(pad.any()), "no padded rows in the batch")
+    atol, rtol = TOL[torch.float32]["chain"]
+    return max(compare(f"K2 {part}, the {int(pad.sum())} padded rows", g[pad], r[pad], atol, rtol)
+               for part, g, r in (("y", got[0], ref[0]), ("LN2 y", got[1], ref[1])))
+
+
+def rate_phase(cfg, caco_dir, mae_dir, tok_dir, tmp, label):
+    """Phase 17c: the zs, HEAR embedding and prediction rates, warm (after
+    phases 17a and 17b in this process), RATE_RUNS runs of each in turns."""
+    n = cfg.audio.num_layers
+    rs = np.random.RandomState(SEED + 20)
+    n_esc = len(RATE_ESC_CATEGORIES) * RATE_ESC_PER_CATEGORY
+    esc = write_esc50(os.path.join(tmp, "esc50_rate"), rs, RATE_ESC_CATEGORIES,
+                      RATE_ESC_PER_CATEGORY, lambda: 5.0)
+    paths = sorted(os.listdir(os.path.join(esc, "audio")))[:BATCH]
+    t0 = time.perf_counter()
+    for f in paths:
+        load_audio(os.path.join(esc, "audio", f), expected_sr=44100)
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    zs = ["--ckpt_path", caco_dir, "--tokenizer", tok_dir, "--batch_size", str(BATCH),
+          "--device", DEVICE, "--task", "zs", "--dataset", "esc50"]
+    buckets = -(-n_esc // BATCH)
+    zs_rates = {"float32": [], "bfloat16": []}
+    with environ(CACOPHONY_ESC50_DIR=esc):
+        for _ in range(RATE_RUNS):
+            for dt, key in (("float32", "k2_block"), ("bfloat16", "k1_layer")):
+                (_, text), _ = drive(f"eval --task zs --dtype {dt}, {n_esc} clips of 5 s (rate)",
+                                     lambda: echoed(eval_cli.main, zs + ["--dtype", dt]),
+                                     {key: n * buckets})
+                zs_rates[dt].append(n_esc / stage_seconds(text, "decode_embed_stream"))
+
+    tasks = os.path.join(tmp, "rate_tasks")
+    task = "kfold-v1.0.0-full"
+    folds = {f"fold{i:02d}": RATE_HEAR_PER_FOLD for i in range(RATE_HEAR_FOLDS)}
+    write_hear_task(tasks, task, "scene", "multiclass", folds, ["top1_acc"],
+                    ("bangu", "naobo", "daibo", "xiaoluo"), rs, lambda: 5.0, duration=5.0)
+    clips = RATE_HEAR_FOLDS * RATE_HEAR_PER_FOLD
+    batches = RATE_HEAR_FOLDS * -(-RATE_HEAR_PER_FOLD // HEAR_BATCH)
+    embed_rates = {"caco": [], "audiomae": []}
+    roots = [os.path.join(tmp, f"rate_embeddings_{r}") for r in range(RATE_RUNS)]
+    for root in roots:
+        for name, path in (("caco", caco_dir), ("audiomae", mae_dir)):
+            drive(f"hear.runner --embedding-name {name}, {clips} clips of 5 s (rate)",
+                  lambda: echoed(hear_runner.run, path, tasks, root, embedding_name=name,
+                                 batch_size=HEAR_BATCH, device=DEVICE),
+                  {"k2_block": n * batches})
+            seconds = read_json(root, name, task, "profile.embeddings.json")["time_elapsed"]
+            embed_rates[name].append(clips / seconds)
+    pred_s, steps = [], []
+    for root in roots:
+        trained = []
+        t0 = time.perf_counter()
+        with spy(hear_pred.MLPProbe, "train_batch", trained):
+            echoed(predictions_runner.run, root, grid="faster", device=DEVICE)
+        torch.cuda.synchronize()
+        pred_s.append(time.perf_counter() - t0)
+        steps.append(len(trained))
+        for name in embed_rates:
+            res = read_json(root, name, task, "test.predicted-scores.json")
+            check(res["num_folds"] == RATE_HEAR_FOLDS and 0.0 <= res["test"]["top1_acc"] <= 1.0,
+                  f"rate {name}: {res['num_folds']} folds, scores {res['test']}")
+
+    def runs(v):
+        return " / ".join(f"{x:.1f}" for x in v)
+
+    print(f"  rates, warm, {RATE_RUNS} runs in turns ({label}): zs on {n_esc} clips of 5 s at "
+          f"44.1 kHz {runs(zs_rates['float32'])} clips/s fp32, {runs(zs_rates['bfloat16'])} "
+          f"bf16 (the host's read and resample alone {decode_ms:.2f} ms a clip = "
+          f"{1e3 / decode_ms:.1f} clips/s); HEAR on {clips} clips of 5 s at 16 kHz "
+          f"{runs(embed_rates['caco'])} clips/s caco, {runs(embed_rates['audiomae'])} audiomae; "
+          f"predictions_runner --grid faster over both folders ({RATE_HEAR_FOLDS} folds each) "
+          f"{' / '.join(f'{x:.3f}' for x in pred_s)} s ({' / '.join(map(str, steps))} probe "
+          f"steps)")
+    return {"zs_clips_per_s": zs_rates, "host_decode_ms_per_clip": decode_ms,
+            "hear_clips_per_s": embed_rates, "prediction_s": pred_s, "probe_steps": steps}
+
+
+def eval_hear_phase(label):
+    """Phase 17: the eval CLI and the HEAR runners; the temporary directory
+    (models, data, outputs) is removed at its end."""
+    cfg = configs.caco_base()
+    print("phase 17: eval and HEAR at caco_base / audiomae_base width, in process, on the card")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_eval_")
+    try:
+        caco_dir, mae_dir = write_models(tmp)
+        tok_dir = os.path.join(tmp, "tok")
+        os.makedirs(tok_dir)
+        with open(os.path.join(tok_dir, "vocab.json"), "w") as f:
+            json.dump(byte_vocab(), f)
+        with open(os.path.join(tok_dir, "merges.txt"), "w") as f:
+            f.write("#version: 0.2\n")
+        esc, clotho = write_eval_data(tmp, np.random.RandomState(SEED + 17))
+        eval_launches, eval_out = eval_phase(cfg, caco_dir, tok_dir, esc, clotho, tmp, label)
+        hear_launches, hear_out = hear_phase(cfg, caco_dir, mae_dir, tmp, label)
+        rates = rate_phase(cfg, caco_dir, mae_dir, tok_dir, tmp, label)
+    finally:
+        shutil.rmtree(tmp)
+    wall = time.perf_counter() - t0
+    print(f"  phase 17 took {wall:.1f} s ({label})")
+    return eval_launches, hear_launches, {"eval": eval_out, "hear": hear_out, "rates": rates,
+                                          "wall_s": wall}
+
+
 def clips_per_s(engine, wavs, runs=2):
     engine.embed_audio(wavs[:BATCH])  # warm
     rates = []
@@ -2615,6 +3153,7 @@ def run() -> dict:
           f"{mae_train['float32']['median_step_ms']:.2f} ms fp32 (B={MAE_TRAIN_BATCH}), peak "
           f"{mae_train['bfloat16']['peak_gib']:.2f} / {mae_train['float32']['peak_gib']:.2f} GiB "
           f"({label})")
+    eval_launches, hear_launches, eval_hear = eval_hear_phase(label)
     err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
@@ -2640,7 +3179,11 @@ def run() -> dict:
                 "mae_launches": mae_path[name][key] if name in mae_path else 0,
                 "caption_launches": caption_path[name][key] if name in caption_path else 0,
                 "decode_launches": caption_launches["decode"][key],
-                "prefill_launches": caption_launches["prefill"][key]}
+                "prefill_launches": caption_launches["prefill"][key],
+                # phase 17: every eval CLI run on its paths (zs fp32 and bf16,
+                # ar bf16 and fp32, caption bf16), and both HEAR runners
+                "eval_launches": sum(got[key] for got in eval_launches.values()),
+                "hear_launches": sum(got[key] for got in hear_launches.values())}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -2677,6 +3220,10 @@ def run() -> dict:
                                  "runner_mae_k7": stage1_launches["runner_mae"]["k7"],
                                  "runner_init_k4": stage1_launches["runner_init"]["k4"]}},
             "caption": caption,
+            "eval_hear": dict(eval_hear, launches={
+                "eval": {run: {k: got[k] for k in ("k1_layer", "k2_block", "k3_block")}
+                         for run, got in eval_launches.items()},
+                "hear": {run: got["k2_block"] for run, got in hear_launches.items()}}),
             "gpu": label}
 
 

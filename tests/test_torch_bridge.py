@@ -70,7 +70,7 @@ import builtins, importlib, pkgutil, sys
 real_import = builtins.__import__
 def guard(name, *args, **kwargs):
     if name.split(".")[0] in ("jax", "jaxlib", "triton", "cacophony_tpu", "flax", "msgpack",
-                              "orbax"):
+                              "orbax", "sklearn", "sed_eval", "dcase_util"):
         raise ImportError("blocked: " + name)
     return real_import(name, *args, **kwargs)
 builtins.__import__ = guard
@@ -78,25 +78,37 @@ import cacophony_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(cacophony_tpu_torch.__path__, "cacophony_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+# every scene score once: a lazy scikit-learn import raises here
+import numpy as np
+from cacophony_tpu_torch.hear.score import SCENE_SCORES
+p = np.asarray([[0.9, 0.1, 0.3], [0.2, 0.8, 0.6], [0.6, 0.4, 0.5], [0.1, 0.7, 0.2]])
+t = np.asarray([[1, 0, 0], [0, 1, 1], [1, 0, 1], [0, 1, 0]], np.float32)
+scores = {k: fn(p, t) for k, fn in SCENE_SCORES.items()}
+assert all(np.isfinite(v) for v in scores.values()), scores
+assert not any(m.split(".")[0] in ("sklearn", "sed_eval", "dcase_util") for m in sys.modules)
 print(" ".join(names))
 """
 
 
 def test_port_imports_without_jax_or_triton():
     """Every module of the port imports with jax, triton, flax, msgpack,
-    orbax and the JAX package blocked (the card has none of them): the
-    guard refuses every import statement naming them, cached or not.  The
-    checkpoint, host-data and runner modules are among those imported."""
+    orbax, scikit-learn, sed_eval, dcase_util and the JAX package blocked
+    (the card has none of them): the guard refuses every import statement
+    naming them, cached or not.  The checkpoint, host-data, runner, eval and
+    HEAR modules are among those imported, and every scene score runs once
+    under the guard (a lazy import inside a scorer would raise there)."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.split())
-    assert len(names) >= 34
+    assert len(names) >= 53
     assert {f"cacophony_tpu_torch.{m}" for m in (
         "checkpoints.msgpack", "checkpoints.convert", "checkpoints.io", "native.wavio",
         "data.audio_io", "data.pipeline", "train.runner", "utils.observability",
-        "utils.profiling")} <= names
+        "utils.profiling", "eval.cli", "eval.__main__", "hear.score", "hear.predictions",
+        "hear.predictions_runner", "hear.runner",
+        "third_party.sed_eval_shim.sound_event")} <= names
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero():

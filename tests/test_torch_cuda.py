@@ -22,8 +22,10 @@ one layer a tower (the reconstruction forward's routes against the CPU,
 one loss and backward's K4 / K7 counts, fp32 against the CPU),
 `load_audiomae` onto the card and two steps of `runner --stage mae`;
 greedy fp32 decode at caco_tiny on the card (the step as a CUDA graph and
-eager) against the CPU token for token, and gallery search on the card
-against the CPU.
+eager) against the CPU token for token, gallery search on the card
+against the CPU; the HEAR embedders' forward at published audio width
+(one layer, 500 patches, K2) against the CPU with the padded rows, and
+one HEAR probe step on the card against the CPU.
 
 Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
 machine without one each skips.  The file imports neither JAX nor the JAX
@@ -1064,3 +1066,117 @@ def test_gallery_search_on_the_card_matches_cpu(cuda):
         out[dev] = g.search(rows[:32], k=10)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
+
+
+def _hear_model(kind, seed):
+    """A HEAR embedder's model at published audio width with one encoder
+    layer: caco_base's audio tower (a caco_tiny text side), or
+    audiomae_base's encoder and decoder."""
+    import dataclasses
+
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.models.caco import caco_init
+
+    if kind == "audiomae":
+        return _mae_one_layer(seed)
+    base, tiny = configs.caco_base(), configs.caco_tiny()
+    cfg = dataclasses.replace(base, audio=dataclasses.replace(base.audio, num_layers=1),
+                              text=tiny.text, decoder=tiny.decoder)
+    return cfg, caco_init(cfg, torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["caco", "audiomae"])
+def test_hear_embedder_on_the_card_matches_cpu(cuda, kind, tmp_path):
+    """The HEAR forward at 10 s (500 patches, fp32: K2) on clips of 0.7,
+    2.5 and 10 s: the whole encoder output, the padded rows included (the
+    event pool averages them), and the scene and event embeddings agree
+    with the CPU's plain path within the fp32 chain bound."""
+    import copy
+
+    from scipy.io import wavfile
+
+    from cacophony_tpu_torch.hear import embeddings
+
+    rs = np.random.RandomState(21)
+    paths = []
+    for i, seconds in enumerate((0.7, 2.5, 10.0)):
+        paths.append(str(tmp_path / f"clip{i}.wav"))
+        wavfile.write(paths[-1], 16000, (0.1 * rs.randn(int(seconds * 16000)) * 32767)
+                      .astype(np.int16))
+    cfg, model = _hear_model(kind, 22)
+    cls = embeddings.CacoHearEmbedder if kind == "caco" else embeddings.AudioMAEHearEmbedder
+    cpu = cls(cfg, model)
+    card = cls(cfg, copy.deepcopy(model).to(cuda))
+    assert card.device.type == "cuda" and card.patch.patches_seq_len == 500
+
+    def hidden(emb):
+        out = emb._fwd(paths)
+        return (out[1] if kind == "caco" else out).float().cpu()
+
+    ref = hidden(cpu)
+    _reset_layer_launches()
+    got = hidden(card)
+    torch.cuda.synchronize()
+    assert ea.LAYER_LAUNCHES["k2_block"] == 1 and ea.LAYER_LAUNCHES["k1_layer"] == 0
+    atol, rtol = TOL["float32"]
+    mask = cpu._batch(paths)["audio_mask"]
+    assert mask[0].sum() < 500 and (mask == 0).any()  # padded rows present
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=atol, rtol=rtol)
+    pad = (mask == 0).numpy()
+    np.testing.assert_allclose(got.numpy()[pad], ref.numpy()[pad], atol=atol, rtol=rtol)
+    np.testing.assert_allclose(card.scene_embeddings(paths), cpu.scene_embeddings(paths),
+                               atol=atol, rtol=rtol)
+    (ev, ts), (ev_ref, ts_ref) = card.event_embeddings(paths), cpu.event_embeddings(paths)
+    assert ev.shape == (3, 62, 768)
+    np.testing.assert_array_equal(ts, ts_ref)
+    np.testing.assert_allclose(ev, ev_ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_probe_train_step_on_the_card_matches_cpu(cuda):
+    """One step of the HEAR probe (dropout 0, two hidden layers with BN,
+    multiclass) on the card against the same step on the CPU: every gradient,
+    weight, BN parameter and statistic, and the probabilities, within 1e-5.
+    The gradient of a pre-BN bias is zero in exact arithmetic (the BN takes
+    the batch mean out).  Each device leaves a rounding residue, near 1e-8
+    on the CPU and so near Adam's eps, and Adam's first step turns it into a
+    move of lr·|g| / (|g| + eps) < lr that differs from device to device.
+    So on each device those gradients are held to 1e-6 (the other leaves'
+    are 1e-2 to 1e-1) and those moves to lr, and the probabilities are
+    compared with the CPU's pre-BN biases on both probes."""
+    from cacophony_tpu_torch.hear.predictions import MLPProbe
+
+    conf = {"hidden_layers": 2, "hidden_dim": 64, "dropout": 0.0, "batch_size": 64, "lr": 1e-3}
+    rs = np.random.RandomState(5)
+    x = rs.randn(64, 768).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 64)]
+    probes = {d: MLPProbe(768, 10, "multiclass", conf, seed=7, device=d) for d in ("cpu", "cuda")}
+    assert all(p.device.type == "cuda" for p in probes["cuda"].parameters())
+    pre_bn = {f"net.{i}.bias" for i in (0, 4)}
+    init = {k: v.clone() for k, v in probes["cpu"].state_dict().items() if k in pre_bn}
+    grads, moves = {}, {}
+    for d, probe in probes.items():
+        probe.train_batch(torch.from_numpy(x).to(d), torch.from_numpy(y).to(d))
+        grads[d] = {k: p.grad.cpu().numpy() for k, p in probe.named_parameters()}
+        moves[d] = {k: float((probe.state_dict()[k].cpu() - init[k]).abs().max()) for k in pre_bn}
+    print(f"pre-BN biases, one step: max |gradient| "
+          f"{ {d: {k: float(np.abs(g[k]).max()) for k in sorted(pre_bn)} for d, g in grads.items()} },"
+          f" max |move| {moves} (lr {conf['lr']})")
+    for k, g in grads["cpu"].items():
+        if k in pre_bn:
+            for d in grads:
+                assert np.abs(grads[d][k]).max() <= 1e-6, (d, k)
+                assert moves[d][k] < conf["lr"], (d, k)
+        else:
+            np.testing.assert_allclose(grads["cuda"][k], g, atol=1e-5, rtol=1e-5, err_msg=k)
+    ref, got = probes["cpu"].state_dict(), probes["cuda"].state_dict()
+    for k, v in ref.items():
+        if k not in pre_bn:
+            np.testing.assert_allclose(got[k].cpu().numpy(), v.numpy(), atol=1e-5, rtol=1e-5,
+                                       err_msg=k)
+    with torch.no_grad():
+        for k in pre_bn:
+            got[k].copy_(ref[k])
+    np.testing.assert_allclose(probes["cuda"].probabilities(x), probes["cpu"].probabilities(x),
+                               atol=1e-5, rtol=1e-5)

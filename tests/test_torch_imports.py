@@ -21,9 +21,6 @@ PORT_ROOT = os.path.dirname(cacophony_tpu_torch.__file__)
 
 # JAX subpackages the port has not reached (ROADMAP.md queue A).
 UNPORTED_PACKAGES = {
-    "eval": "item 6",
-    "hear": "item 6",
-    "third_party": "item 6 (sed_eval_shim, with the eval harness)",
     "parallel": "item 7",
 }
 # Names of a ported package that the port leaves out, and why.
