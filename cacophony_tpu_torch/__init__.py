@@ -25,7 +25,13 @@ Ported so far:
   `load_audiomae` (a reader of its own, checkpoints/msgpack.py), and
   `python -m cacophony_tpu_torch.train.runner` trains either stage from a
   folder of audio files (host decode in native/, the loader in
-  data/pipeline.py), saving and resuming its state.
+  data/pipeline.py), saving and resuming its state, its text tower
+  optionally started from a local HF RoBERTa directory (checkpoints/hf.py);
+- data parallelism over a process-group mesh (parallel/: the training
+  step on the global batch, the engine and the gallery split by rows,
+  `runner --dp` under torchrun); tensor parallelism is not ported;
+- the matmul-FLOP counters and device peaks (utils/flops.py) and the
+  device FFT resample (`frontend.dsp.resample_fft`).
 """
 
 __version__ = "0.1.0"

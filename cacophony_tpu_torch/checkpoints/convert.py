@@ -25,8 +25,9 @@ layout) and `AudioDecoder_0` (the same layer names, `Dense_0` in_proj,
 `restore_patch` mask token, `Dense_1` out_proj); `convert_audiomae_params`
 and `audiomae_params_to_reference` map it both ways, and
 `transplant_audiomae_encoder` starts a CacoModel's audio tower from a
-stage-1 encoder.  `convert_hf_roberta` is not ported yet (it waits for the
-HF files).
+stage-1 encoder.  `convert_hf_roberta` takes an HF `FlaxRobertaModel`
+tree (what `checkpoints/hf.py` reads from a local HF directory) to the text
+tower's `embeddings` and `blocks`.
 """
 
 from __future__ import annotations
@@ -407,6 +408,27 @@ def audiomae_params_to_reference(params: dict, enc_num_heads: int, dec_num_heads
 
 
 # ------------------------------------------- pretrained-weight transplants
+
+def convert_hf_roberta(hf_params: dict) -> dict:
+    """HuggingFace FlaxRobertaModel params → the text tower's `embeddings`
+    and stacked `blocks` (reference roberta_update_pretrained_parameters,
+    roberta_text_model.py:680-734).  The HF tree: embeddings/{word_,
+    position_,token_type_embeddings, LayerNorm}, encoder/layer/{'0'..'L-1'}.
+    The HF pooler is a dense-tanh head, not the attention pooler: it is not
+    taken, and the caller keeps its pooler's own values."""
+    layer_tree = hf_params["encoder"]["layer"]
+    stacked = _stack([layer_tree[str(i)] for i in range(len(layer_tree))])
+    emb = hf_params["embeddings"]
+    return {
+        "embeddings": {
+            "word": _np(emb["word_embeddings"]["embedding"]),
+            "position": _np(emb["position_embeddings"]["embedding"]),
+            "token_type": _np(emb["token_type_embeddings"]["embedding"]),
+            "ln": _ln(emb["LayerNorm"]),
+        },
+        "blocks": _text_blocks(stacked),
+    }
+
 
 def transplant_audiomae_encoder(caco_model: torch.nn.Module, mae_model: torch.nn.Module):
     """Start a CacoModel's audio tower from a stage-1 AudioMAE's encoder

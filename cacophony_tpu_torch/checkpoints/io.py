@@ -13,7 +13,10 @@ checkpoints and training state in and out (cacophony_tpu/checkpoints/io.py).
 - `save_train_state` / `latest_step` / `load_train_state`: a `TrainState`
   under `path/step_%08d/` with keep-N pruning — the model's state dict,
   AdamW's `mu` (in its own dtype, bf16 by default) and `nu` in
-  `named_parameters()` order, `count` and `step`.
+  `named_parameters()` order, `count` and `step`.  Under a dp mesh the
+  replicas are equal: rank 0 alone writes, then every rank waits at a
+  barrier; every rank reads on resume.  The file is a one-device run's, so
+  a dp run resumes on one device and the other way round.
 
 - `load_audiomae(path)`: a released-layout stage-1 file (`AudioEncoder_0`,
   `AudioDecoder_0`) → an `AudioMAE` on the card unless `device="cpu"`, the
@@ -30,6 +33,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from cacophony_tpu_torch.checkpoints.bridge import params_from_jax
 from cacophony_tpu_torch.checkpoints.convert import convert_audiomae_params, convert_caco_params
@@ -273,12 +277,18 @@ def _steps(path: str):
                                              for d in os.listdir(path)) if m)
 
 
-def save_train_state(state, path: str, *, keep: int = 3) -> str:
+def save_train_state(state, path: str, *, keep: int = 3, mesh=None) -> str:
     """A TrainState (train/train.py) to `path/step_%08d/`, written through a
-    temporary directory and a rename; prunes all but the newest `keep`."""
+    temporary directory and a rename; prunes all but the newest `keep`.
+    Under a mesh rank 0 writes and every rank returns after a barrier."""
     model, opt, step = state.params, state.opt_state, int(state.step)
-    names = [n for n, _ in model.named_parameters()]
     final = os.path.join(path, f"step_{step:08d}")
+    if mesh is not None:
+        if dist.get_rank() == 0:
+            save_train_state(state, path, keep=keep)
+        dist.barrier()
+        return final
+    names = [n for n, _ in model.named_parameters()]
     tmp = final + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)

@@ -3,6 +3,7 @@ from cacophony_tpu_torch.frontend.dsp import (  # noqa: F401
     linear_to_mel_matrix,
     log_mel_spectrogram,
     num_stft_frames,
+    resample_fft,
     resample_fft_host,
     stft_magnitude,
 )

@@ -131,3 +131,27 @@ def resample_fft_host(audio: np.ndarray, num_out: int) -> np.ndarray:
             y[..., n_keep // 2] *= 0.5
     out = np.fft.irfft(y, n=num_out)
     return (out * (num_out / num_in)).astype(np.float32)
+
+
+def resample_fft(audio: torch.Tensor, num_out: int) -> torch.Tensor:
+    """FFT-domain resample of the last axis on the tensor's device, fp32
+    (cacophony_tpu/frontend/dsp.py:204-230): `torch.fft.rfft`, the spectrum
+    truncated (down) or zero-padded (up) with resample_fft_host's Nyquist
+    fold (×2) and split (×½), `irfft` at `num_out`, scaled by out / in.
+    Returns its input when the lengths are equal.  The JAX package computes
+    it with `jnp.fft` (no Pallas kernel); cuFFT is its counterpart here."""
+    num_in = audio.shape[-1]
+    if num_in == num_out:
+        return audio
+    x = torch.fft.rfft(audio.float())
+    nbins_out = num_out // 2 + 1
+    n_keep = min(num_in, num_out)
+    if num_out < num_in:
+        y = x[..., :nbins_out].clone()
+        if n_keep % 2 == 0:
+            y[..., n_keep // 2] *= 2.0
+    else:
+        y = torch.nn.functional.pad(x, (0, nbins_out - x.shape[-1]))
+        if n_keep % 2 == 0:
+            y[..., n_keep // 2] *= 0.5
+    return torch.fft.irfft(y, n=num_out) * (num_out / num_in)

@@ -21,7 +21,13 @@ K3 on a CUDA device, their plain versions on the CPU, or the einsum layer.
 `fused_frontend=True` runs the log-mel through K8 (frontend/fused.py).
 `caption` decodes every clip in one batch with KV caches (models/caco.py:
 `decode`; a CUDA graph per step on the card).
-Not ported yet: the mesh (data parallelism).
+
+`mesh=` (a `parallel.make_mesh` mesh) serves data-parallel, as JAX's
+`_data_parallel` does: every rank holds rank 0's parameters
+(`shard_params`, so tp must be 1), runs the single-device program, kernels
+included, on its contiguous rows of each bucket, and the outputs are
+gathered in row order, so every rank returns the whole result.  `score`
+and `caption` run unsharded.  Every rank must make the same calls.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from cacophony_tpu_torch.models.caco import (
     get_text_embedding,
 )
 from cacophony_tpu_torch.ops.encoder_attention import preferred_seq_len
+from cacophony_tpu_torch.parallel.mesh import dp_rows, gather_rows, shard_params
 
 TEXT_BUCKETS = (16, 32, 64)
 DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
@@ -54,7 +61,7 @@ class CacoEngine:
                  device="cuda", buffer_seconds: float = 10.0,
                  patches_seq_len: Optional[int] = None, max_text_len: int = 100,
                  batch_size: int = 32, dtype: Optional[torch.dtype] = None,
-                 fused_frontend: bool = False):
+                 fused_frontend: bool = False, mesh=None):
         """dtype overrides cfg.dtype as the compute dtype; parameters stay
         fp32.  `params` is moved to `device` in place.  The engine runs on
         the card unless it is given device="cpu"; with no card it raises.
@@ -68,7 +75,10 @@ class CacoEngine:
         the kernel routes.  A smaller budget keeps a clip's first patches.
 
         fused_frontend: compute the log-mel with K8 instead of the unfused
-        chain (the same values up to the order of fp32 sums)."""
+        chain (the same values up to the order of fp32 sums).
+
+        mesh: serve data-parallel over the mesh's ranks (module docstring);
+        batch_size must divide over them."""
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype)
         self.cfg = cfg
@@ -95,6 +105,14 @@ class CacoEngine:
         self.tokenizer = tokenizer
         self.fused_frontend = fused_frontend
         self.params = params.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_size % mesh.size() != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide evenly over the "
+                    f"{mesh.size()}-device mesh (each device runs the full model "
+                    f"on its batch shard)")
+            shard_params(self.params, mesh)
         self.peak_in_flight = 0  # most audio buckets in flight in the last embed_audio
 
     # ------------------------------------------------------------- helpers
@@ -128,6 +146,14 @@ class CacoEngine:
             if len(clips) < self.batch_size:
                 return
 
+    def _rows(self, n: int) -> slice:
+        """This rank's contiguous block of n rows (all of them without a
+        mesh)."""
+        return slice(0, n) if self.mesh is None else dp_rows(n, self.mesh)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.mesh is None else gather_rows(x, self.mesh.get_group("dp"))
+
     def _wav_to_patch_batch(self, bufs: torch.Tensor, lens: torch.Tensor):
         """Host buffers → device patch dict: K8 or the unfused chain."""
         bufs = bufs.to(self.device, non_blocking=True)
@@ -139,11 +165,14 @@ class CacoEngine:
     def _audio_bucket(self, bufs: torch.Tensor, lens: torch.Tensor):
         """Launch one bucket → (host embeddings, event or None).  On a card
         the copy back is queued behind the bucket without waiting; the
-        event says when it has landed."""
-        batch = self._wav_to_patch_batch(bufs, lens)
+        event says when it has landed.  Under a mesh this rank embeds its
+        rows and the embeddings are gathered."""
+        rows = self._rows(bufs.shape[0])
+        batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
         emb, _ = get_audio_embedding(self.params, self.cfg, batch["audio_patches"],
                                      batch["audio_time_inds"], batch["audio_freq_inds"],
                                      batch["audio_mask"])
+        emb = self._gather(emb)
         if self.device.type != "cuda":
             return emb, None
         host = self._host(emb.shape, emb.dtype)
@@ -191,7 +220,9 @@ class CacoEngine:
         batch_size, and the clip count (captioning / HEAR paths)."""
         n = len(wavs)
         bufs, lens = self._fill(wavs, -(-n // self.batch_size) * self.batch_size)
-        return self._wav_to_patch_batch(bufs, lens), n
+        rows = self._rows(bufs.shape[0])
+        batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
+        return {k: self._gather(v) for k, v in batch.items()}, n
 
     def embed_audio_long(self, wavs: Sequence[np.ndarray], *,
                          overlap_seconds: float = 0.0) -> np.ndarray:
@@ -245,11 +276,12 @@ class CacoEngine:
             mask[n:, 0] = 1  # avoid fully-masked softmax rows in padding
         out = []
         for i in range(0, n_pad, self.batch_size):
+            rows = self._rows(self.batch_size)
             emb, _ = get_text_embedding(
                 self.params, self.cfg,
-                torch.from_numpy(ids[i:i + self.batch_size]).to(self.device),
-                torch.from_numpy(mask[i:i + self.batch_size]).to(self.device))
-            out.append(emb.cpu().numpy())
+                torch.from_numpy(ids[i:i + self.batch_size][rows]).to(self.device),
+                torch.from_numpy(mask[i:i + self.batch_size][rows]).to(self.device))
+            out.append(self._gather(emb).cpu().numpy())
         return np.concatenate(out)[:n]
 
     @torch.inference_mode()

@@ -5,17 +5,42 @@ objectives its paper implies, with the repo's scoring rule
 exp(logit_scale)·A@Tᵀ.  `softmax_cross_entropy_with_integer_labels` of
 optax is logsumexp(logits) − logits[label], which is `F.cross_entropy`
 without reduction.
+
+Under a dp mesh each loss takes the dp process group and stands for the
+loss of the global batch, as GSPMD makes JAX's (cacophony_tpu/train/
+losses.py:7-10): the contrastive loss gathers both embeddings over the
+group with a gather autograd sees (its backward sums over the ranks) and
+is the whole B×B loss on every rank; a mask-weighted mean is this rank's
+share, its masked sum over the group's count (all-reduced without
+gradient), so the shares summed over the ranks are the global mean.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from cacophony_tpu_torch.parallel.mesh import GatherRows
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor, group) -> torch.Tensor:
+    """Σ values·mask / Σ mask, the count taken over the group's ranks."""
+    m = mask.to(values.dtype)
+    count = m.sum()
+    if group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
+    return (values * m).sum() / count.clamp_min(1.0)
 
 
 def clip_contrastive_loss(audio_emb: torch.Tensor, text_emb: torch.Tensor,
-                          logit_scale: torch.Tensor) -> torch.Tensor:
-    """Symmetric InfoNCE over the batch; embeddings (B, D) L2-normalized."""
+                          logit_scale: torch.Tensor, group=None) -> torch.Tensor:
+    """Symmetric InfoNCE over the (global) batch; embeddings (B, D)
+    L2-normalized."""
+    if group is not None:
+        audio_emb = GatherRows.apply(audio_emb, group)
+        text_emb = GatherRows.apply(text_emb, group)
     logits = torch.exp(logit_scale) * (audio_emb @ text_emb.T)
     labels = torch.arange(logits.shape[0], device=logits.device)
     l_at = F.cross_entropy(logits, labels, reduction="none")
@@ -24,23 +49,23 @@ def clip_contrastive_loss(audio_emb: torch.Tensor, text_emb: torch.Tensor,
 
 
 def caption_cross_entropy(logits: torch.Tensor, target_ids: torch.Tensor,
-                          target_mask: torch.Tensor) -> torch.Tensor:
-    """Token-level CE over (B, S, V) logits, mask-weighted mean."""
+                          target_mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Token-level CE over (B, S, V) logits, mask-weighted mean (this
+    rank's share under a group)."""
     ce = F.cross_entropy(logits.flatten(0, 1), target_ids.flatten().long(),
                          reduction="none").reshape(target_ids.shape)
-    m = target_mask.to(ce.dtype)
-    return (ce * m).sum() / m.sum().clamp_min(1.0)
+    return _masked_mean(ce, target_mask, group)
 
 
 def mae_reconstruction_loss(pred_patches: torch.Tensor, true_patches: torch.Tensor,
                             loss_mask: torch.Tensor,
-                            normalize_target: bool = False) -> torch.Tensor:
-    """MSE over the positions loss_mask marks (MAE: the masked ones)."""
+                            normalize_target: bool = False, group=None) -> torch.Tensor:
+    """MSE over the positions loss_mask marks (MAE: the masked ones; this
+    rank's share under a group)."""
     target = true_patches
     if normalize_target:
         mu = target.mean(-1, keepdim=True)
         var = target.var(-1, keepdim=True, unbiased=False)
         target = (target - mu) / torch.sqrt(var + 1e-6)
     err = (pred_patches - target).square().mean(-1)
-    m = loss_mask.to(err.dtype)
-    return (err * m).sum() / m.sum().clamp_min(1.0)
+    return _masked_mean(err, loss_mask, group)

@@ -1,11 +1,12 @@
 """Training runner CLI: stage-2 (CACO) or stage-1 (MAE) training on one
-device (cacophony_tpu/train/runner.py:47-211).
+device or data-parallel over several (cacophony_tpu/train/runner.py:47-211).
 
     python -m cacophony_tpu_torch.train.runner --stage caco --data-dir DIR \
         --workdir WORK --tokenizer TOKDIR [--device cpu] [--dtype bfloat16] \
-        [--init-audio-from-mae STAGE1_FILE]
+        [--init-audio-from-mae STAGE1_FILE] [--init-text-from-hf HF_DIR]
     python -m cacophony_tpu_torch.train.runner --stage mae --data-dir DIR \
         --workdir WORK [--device cpu] [--dtype bfloat16]
+    torchrun --nproc-per-node N -m cacophony_tpu_torch.train.runner ... --dp N
 
 Data layout: DIR holds wavs (any depth) and `captions.csv` with columns
 (file_name, caption), several rows per file allowed, and optionally
@@ -28,10 +29,18 @@ dummy tokenizer, the batch is the training frontend's alone, and the model
 is `audiomae_base()` (`--tiny-model`: a 32-wide, 2-layer, 2-head encoder
 and decoder with a 64-wide MLP).  `--init-audio-from-mae` starts stage 2's
 audio tower from a stage-1 file's encoder (`load_audiomae`, the published
-count guards on unless `--tiny-model`).
+count guards on unless `--tiny-model`).  `--init-text-from-hf DIR` then
+replaces the text tower's embeddings and blocks with a local HF RoBERTa
+directory's (checkpoints/hf.py; nothing is downloaded).
 
-Not ported yet: `--init-text-from-hf` (needs the HF files), the mesh
-(`--dp`, `--tp`; queue A item 7).
+`--dp N` (or a torchrun launch) joins the process group
+(`initialize_multihost`) and trains over a ('dp', 'tp') mesh: every rank
+starts from rank 0's parameters, loads the global batch and runs the
+device frontend on it with the step's generator, then keeps its rows
+(`shard_batch`); the step optimizes the global batch's loss.  Rank 0 alone
+writes the metrics and the checkpoints, which a one-device run resumes
+(and the other way round).  `--tp` > 1 raises: tensor parallelism is
+ROADMAP.md queue A item 7b.
 """
 
 from __future__ import annotations
@@ -47,9 +56,11 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cacophony_tpu_torch import configs
 from cacophony_tpu_torch.checkpoints.convert import transplant_audiomae_encoder
+from cacophony_tpu_torch.checkpoints.hf import load_hf_text_tower
 from cacophony_tpu_torch.checkpoints.io import (
     latest_step,
     load_audiomae,
@@ -67,6 +78,9 @@ from cacophony_tpu_torch.data.tokenizer import load_tokenizer
 from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
 from cacophony_tpu_torch.models.audio import audiomae_init
 from cacophony_tpu_torch.models.caco import caco_init
+from cacophony_tpu_torch.parallel import make_mesh, shard_batch, shard_params
+from cacophony_tpu_torch.parallel.mesh import TP_ITEM
+from cacophony_tpu_torch.parallel.multihost import initialize_multihost
 from cacophony_tpu_torch.train.train import (
     TrainConfig,
     init_train_state,
@@ -112,7 +126,10 @@ def build_parser():
     p.add_argument("--init-audio-from-mae", default=None,
                    help="AudioMAE checkpoint to transplant the audio tower from")
     p.add_argument("--init-text-from-hf", default=None,
-                   help="HF roberta name/path to initialize the text tower")
+                   help="local HF RoBERTa directory to initialize the text tower from")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel ranks (default: the launcher's world size)")
+    p.add_argument("--tp", type=int, default=1, help="tensor parallel (only 1 is ported)")
     return p
 
 
@@ -143,11 +160,23 @@ def _tiny_mae() -> configs.AudioMAEConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.init_text_from_hf:
-        sys.exit("--init-text-from-hf is not ported yet: it waits for the HF roberta files")
+    if args.tp > 1:
+        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet: "
+                                  f"{TP_ITEM}")
+    if args.init_text_from_hf and not os.path.isdir(args.init_text_from_hf):
+        sys.exit(f"--init-text-from-hf {args.init_text_from_hf}: not a directory; the HF "
+                 "RoBERTa files must be local (nothing is downloaded)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
+    mesh, owns_group = None, False
+    if args.dp is not None or "WORLD_SIZE" in os.environ:
+        owns_group = not dist.is_initialized()
+        initialize_multihost(device=device)
+        mesh = make_mesh(dp=args.dp, tp=args.tp, device=device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    rank0 = mesh is None or dist.get_rank() == 0
     os.makedirs(args.workdir, exist_ok=True)
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
                      total_steps=args.total_steps or args.steps)
@@ -187,20 +216,25 @@ def main(argv=None):
                                    device=device)
             transplant_audiomae_encoder(model, mae)
             del mae
-        step_fn = make_caco_train_step(cfg, tc)
+        if args.init_text_from_hf:
+            load_hf_text_tower(model, args.init_text_from_hf)
+        step_fn = make_caco_train_step(cfg, tc, mesh)
     else:
         cfg = dataclasses.replace(_tiny_mae() if args.tiny_model else configs.audiomae_base(),
                                   dtype=dtype)
         model = audiomae_init(cfg.encoder, cfg.decoder, gen0).to(device)
-        step_fn = make_mae_train_step(cfg, tc)
+        step_fn = make_mae_train_step(cfg, tc, mesh)
+    if mesh is not None:
+        shard_params(model, mesh)
 
     # ---- state (+ resume)
     state = init_train_state(model, tc)
     ck_dir = os.path.join(args.workdir, "checkpoints")
     if latest_step(ck_dir) is not None:
         state = load_train_state(ck_dir, state)
-        print(f"resumed from step {state.step}", flush=True)
-    metrics_log = MetricsLogger(os.path.join(args.workdir, "metrics.jsonl"))
+        if rank0:
+            print(f"resumed from step {state.step}", flush=True)
+    metrics_log = MetricsLogger(os.path.join(args.workdir, "metrics.jsonl")) if rank0 else None
     start = state.step
     loader.start_batch = start  # resume the data stream, don't replay it
     batches = itertools.islice(loader, max(0, args.steps - start))
@@ -209,13 +243,18 @@ def main(argv=None):
         batch = frontend(gen, host["audio_bufs"], host["audio_lens"])
         if caco:
             batch["text_input_ids"], batch["text_mask"] = host["text_input_ids"], host["text_mask"]
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         state, metrics = step_fn(state, batch, gen)
-        if step_i % args.log_every == 0:
+        if metrics_log is not None and step_i % args.log_every == 0:
             metrics_log.log(step=step_i, **{k: float(v) for k, v in metrics.items()})
         if args.checkpoint_every and (step_i + 1) % args.checkpoint_every == 0:
-            save_train_state(state, ck_dir)
-    save_train_state(state, ck_dir)
-    print(f"done at step {state.step}", flush=True)
+            save_train_state(state, ck_dir, mesh=mesh)
+    save_train_state(state, ck_dir, mesh=mesh)
+    if rank0:
+        print(f"done at step {state.step}", flush=True)
+    if owns_group:
+        dist.destroy_process_group()
     return state
 
 

@@ -36,6 +36,18 @@ port updates parameters and moments in place (JAX donates the state);
 numbers (dropout) come from the `torch.Generator` passed to the step, on
 the parameters' device.  On a card, the step factory turns off TF32 and
 reduced-precision bf16 reductions for this process, as the engine does.
+
+Under a dp mesh (`mesh=`, parallel/mesh.py) each rank steps on its rows of
+the global batch and the step optimizes the global batch's loss, as
+GSPMD's does in JAX: rank r's objective is L_con/dp (the contrastive loss,
+whose gathered embeddings' backward already sums over the ranks) plus its
+share of each masked mean (train/losses.py); the gradients are then summed
+over dp, coalesced, so the norm, the clip and AdamW run on the same
+gradients on every rank and the replicas stay equal.  The logged `loss`,
+`contrastive`, `caption` and `grad_norm` are the global ones.  The MAE
+noise is drawn at the global batch's shape and sliced, so a dp step masks
+what a one-device step masks; dropout and drop-path draw per rank (as
+JAX's `rbg` keys do per shard).
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from cacophony_tpu_torch.checkpoints.bridge import decay_mask
@@ -53,6 +66,7 @@ from cacophony_tpu_torch.configs import AudioMAEConfig, CacoConfig
 from cacophony_tpu_torch.models.audio import audiomae_apply
 from cacophony_tpu_torch.models.caco import get_audio_embedding, get_text_embedding
 from cacophony_tpu_torch.models.text import caption_decoder_apply
+from cacophony_tpu_torch.parallel.mesh import TP_ITEM, coalesced, dp_rows
 from cacophony_tpu_torch.train.losses import (
     caption_cross_entropy,
     clip_contrastive_loss,
@@ -168,9 +182,28 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def make_caco_loss(cfg: CacoConfig, tc: TrainConfig):
-    """→ loss_fn(model, batch, generator) → (loss, metrics): the stage-2
-    objective of `make_caco_train_step` without the optimizer."""
+def _dp_group(mesh):
+    """The mesh's dp process group, or None without a mesh."""
+    if mesh is None:
+        return None
+    if mesh["tp"].size() > 1:
+        raise NotImplementedError(f"training with tp > 1 is not ported yet: {TP_ITEM}")
+    return mesh.get_group("dp")
+
+
+def _global(x: torch.Tensor, group) -> torch.Tensor:
+    """A rank's share summed over the group (no gradient)."""
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
+    """→ loss_fn(model, batch, generator) → (objective, metrics): the
+    stage-2 objective of `make_caco_train_step` without the optimizer.
+    Without a mesh the objective is the loss; under one it is this rank's
+    objective, and metrics hold the global values."""
+    group = _dp_group(mesh)
 
     def audio(model, batch, generator):
         arrays = (batch["audio_patches"], batch["audio_time_inds"], batch["audio_freq_inds"],
@@ -204,20 +237,27 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig):
         ids, tmask = batch["text_input_ids"], batch["text_mask"]
         t_emb, t_hidden = get_text_embedding(model, cfg, ids, tmask, train=True,
                                              generator=generator)
-        l_con = clip_contrastive_loss(a_emb, t_emb, model.logit_scale)
+        l_con = clip_contrastive_loss(a_emb, t_emb, model.logit_scale, group)
         logits = caption_decoder_apply(model.decoder, cfg.decoder, t_hidden[:, :-1],
                                        tmask[:, :-1], a_hidden, batch["audio_mask"], train=True,
                                        generator=generator, dtype=cfg.dtype)
-        l_cap = caption_cross_entropy(logits.float(), ids[:, 1:], tmask[:, 1:])
-        loss = l_con + tc.caption_loss_weight * l_cap
-        return loss, {"loss": loss, "contrastive": l_con, "caption": l_cap}
+        l_cap = caption_cross_entropy(logits.float(), ids[:, 1:], tmask[:, 1:], group)
+        if group is None:
+            loss = l_con + tc.caption_loss_weight * l_cap
+            return loss, {"loss": loss, "contrastive": l_con, "caption": l_cap}
+        objective = l_con / dist.get_world_size(group) + tc.caption_loss_weight * l_cap
+        cap = _global(l_cap, group)
+        return objective, {"loss": l_con.detach() + tc.caption_loss_weight * cap,
+                           "contrastive": l_con, "caption": cap}
 
     return loss_fn
 
 
-def _make_step(loss_fn, tc: TrainConfig):
+def _make_step(loss_fn, tc: TrainConfig, mesh=None):
     """→ step(state, batch, generator) → (state, metrics): loss_fn's
-    gradients, their global norm, one AdamW update in place."""
+    gradients (summed over dp under a mesh), their global norm, one AdamW
+    update in place."""
+    group = _dp_group(mesh)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -233,6 +273,8 @@ def _make_step(loss_fn, tc: TrainConfig):
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in model.parameters()]
+        if group is not None:
+            coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
         norm = global_norm(grads)
         opt_state = opt.update(model, grads, state.opt_state, norm)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -242,19 +284,27 @@ def _make_step(loss_fn, tc: TrainConfig):
     return step
 
 
-def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig):
+def make_caco_train_step(cfg: CacoConfig, tc: TrainConfig, mesh=None):
     """→ step(state, batch, generator) → (state, metrics).  batch:
     audio_patches / audio_time_inds / audio_freq_inds / audio_mask and
-    text_input_ids / text_mask, on the parameters' device."""
-    return _make_step(make_caco_loss(cfg, tc), tc)
+    text_input_ids / text_mask, on the parameters' device; under a dp mesh
+    this rank's rows (`shard_batch`) of the global batch."""
+    return _make_step(make_caco_loss(cfg, tc, mesh), tc, mesh)
 
 
 # --------------------------------------------------------------- stage 1
 
-def mae_noise(generator: Optional[torch.Generator], mask: torch.Tensor) -> torch.Tensor:
+def mae_noise(generator: Optional[torch.Generator], mask: torch.Tensor,
+              mesh=None) -> torch.Tensor:
     """The masking noise: U[0, 1) of the patch grid's (B, S) shape, from
-    `generator` on the mask's device."""
-    return torch.rand(mask.shape, generator=generator, device=mask.device)
+    `generator` on the mask's device.  Under a dp mesh `mask` is this
+    rank's rows: the noise is drawn at the global (B·dp, S) shape and this
+    rank's rows are returned."""
+    if mesh is None:
+        return torch.rand(mask.shape, generator=generator, device=mask.device)
+    b, s = mask.shape
+    noise = torch.rand((b * mesh["dp"].size(), s), generator=generator, device=mask.device)
+    return noise[dp_rows(noise.shape[0], mesh)]
 
 
 def mae_random_masking(noise: torch.Tensor, patch_batch: Dict[str, torch.Tensor],
@@ -291,27 +341,32 @@ def mae_random_masking(noise: torch.Tensor, patch_batch: Dict[str, torch.Tensor]
     }
 
 
-def make_mae_loss(cfg: AudioMAEConfig, tc: TrainConfig):
-    """→ loss_fn(model, batch, generator) → (loss, metrics): the stage-1
-    objective of `make_mae_train_step` without the optimizer.  The loss
+def make_mae_loss(cfg: AudioMAEConfig, tc: TrainConfig, mesh=None):
+    """→ loss_fn(model, batch, generator) → (objective, metrics): the
+    stage-1 objective of `make_mae_train_step` without the optimizer (this
+    rank's share under a mesh; metrics hold the global loss).  The loss
     keeps JAX's type promotion: a bf16 reconstruction minus the fp32 target
     is fp32."""
+    group = _dp_group(mesh)
 
     def loss_fn(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
-        m = mae_random_masking(mae_noise(generator, batch["audio_mask"]), batch,
-                               cfg.mask_ratio)
+        # without a mesh, mae_noise keeps its two-argument call
+        noise = (mae_noise(generator, batch["audio_mask"]) if mesh is None
+                 else mae_noise(generator, batch["audio_mask"], mesh))
+        m = mae_random_masking(noise, batch, cfg.mask_ratio)
         pred = audiomae_apply(model, cfg.encoder, cfg.decoder, m["patches"], m["mask"],
                               m["time_inds"], m["freq_inds"], m["restore_time_inds"],
                               m["restore_freq_inds"], m["restore_mask"], dtype=cfg.dtype,
                               train=True, generator=generator)
-        loss = mae_reconstruction_loss(pred, m["target_patches"], m["loss_mask"])
-        return loss, {"loss": loss}
+        loss = mae_reconstruction_loss(pred, m["target_patches"], m["loss_mask"], group=group)
+        return loss, {"loss": loss if group is None else _global(loss, group)}
 
     return loss_fn
 
 
-def make_mae_train_step(cfg: AudioMAEConfig, tc: TrainConfig):
+def make_mae_train_step(cfg: AudioMAEConfig, tc: TrainConfig, mesh=None):
     """Stage-1 masked-reconstruction step → step(state, batch, generator) →
     (state, metrics).  batch: audio_patches / audio_time_inds /
-    audio_freq_inds / audio_mask, on the parameters' device."""
-    return _make_step(make_mae_loss(cfg, tc), tc)
+    audio_freq_inds / audio_mask, on the parameters' device (this rank's
+    rows under a dp mesh)."""
+    return _make_step(make_mae_loss(cfg, tc, mesh), tc, mesh)

@@ -183,6 +183,38 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    size of HEAR's Beijing Opera Percussion), then
    `predictions_runner.run(grid="faster")` over its two folders, each fold
    scored.  The temporary directory is deleted.
+18. the modules ported last: (a) a seeded RoBERTa tree at
+   roberta-base width (12 × 768, 12 heads, MLP 3072, 50 265 words, 514
+   positions, 124.6 M parameters with the HF pooler) written in the three
+   HF formats (`flax_model.msgpack` by the port's writer,
+   `pytorch_model.bin` by torch.save with `roberta.` names and a
+   position_ids buffer, `model.safetensors` by `write_safetensors`), each
+   with a config.json, each loaded onto the card into a caco_base model by
+   `load_hf_text_tower` (the load seconds; every tower equal to the source
+   bit for bit, the text pooler kept), then `train.runner
+   --init-text-from-hf` for 2 bf16 steps at B=16 on phase 14b's kind of
+   files (K4 and K7 24 times; after step 1, whose rate is 0, the saved text
+   tower equals the import); (b) `make_mesh(dp=1)` on NCCL (a one-rank
+   group, no launcher) and the stage-2 step with the mesh at phase 10's
+   shape (B=16, 500 patches, 100 tokens), 3 steps from the same parameters
+   and generator without the mesh, with it, and without it again, in bf16
+   (K4 and K7 36 times) and fp32 (K4 36, no K7): the losses before the
+   first update bit-identical; where the step repeats itself bit for bit
+   (fp32; bf16's K7 sums dQ with float atomics and does not), losses and
+   parameters bit-identical, else the differences printed beside the two
+   runs without the mesh; one bf16 backward's gradients through the
+   coalesced one-rank all-reduce bit for bit; 7 bf16 steps of each in
+   turns, the device busy time of one step of each and the device time of
+   the all-reduce's NCCL kernels; (c) the bf16 10-s
+   engine with the mesh on phase 5's clips and weights, bit-identical to the
+   engine without it (K1 12 a bucket), clips/s of both in turns; (d) phase
+   16d's gallery with the mesh against the one without (equal results),
+   ms of both; (e) `resample_fft` on the card (5-s clips at 44.1 kHz,
+   10-s at 48 kHz, to 16 kHz) against `resample_fft_host` within 1e-5, ms a
+   clip; (f) `mfu` (utils/flops.py's `pipeline_matmul_flops` at 10 s ×
+   (c)'s clips/s without the mesh ÷ the card's bf16 peak) and `train_mfu`
+   (16 × `caco_train_step_matmul_flops(caco_base, 500, 100)` ÷ phase 10's
+   median step ÷ the peak), with the peak's key and value.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′; `mae_launches` counts
@@ -190,7 +222,8 @@ phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps;
 `caption_launches` phase 16a's in one caption call: K1 bf16, K2 fp32, K8
 with the fused frontend; `decode_launches` and `prefill_launches` phase 16b's
 256-stream decode call and 16c's continuous run; `eval_launches` and
-`hear_launches` phase 17's eval CLI runs and HEAR runner runs); the last line is
+`hear_launches` phase 17's eval CLI runs and HEAR runner runs;
+`parallel_launches` phase 18's runner run, dp step and dp engine); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -214,17 +247,18 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cacophony_tpu_torch import configs
-from cacophony_tpu_torch.checkpoints import bridge, convert, msgpack
+from cacophony_tpu_torch.checkpoints import bridge, convert, hf, msgpack
 from cacophony_tpu_torch.checkpoints import io as ckpt_io
 from cacophony_tpu_torch.data import pipeline
 from cacophony_tpu_torch.data.audio_io import load_audio
 from cacophony_tpu_torch.data.pipeline import device_train_frontend
 from cacophony_tpu_torch.data.tokenizer import ByteLevelBPETokenizer, _bytes_to_unicode
 from cacophony_tpu_torch.eval import cli as eval_cli
-from cacophony_tpu_torch.frontend import fused
+from cacophony_tpu_torch.frontend import dsp, fused
 from cacophony_tpu_torch.frontend.patchify import (
     num_patches_for_samples,
     patchify_spectrogram,
@@ -248,12 +282,15 @@ from cacophony_tpu_torch.models.audio import (
 from cacophony_tpu_torch.models.caco import caco_init, get_audio_embedding
 from cacophony_tpu_torch.models.layers import dense, layer_norm
 from cacophony_tpu_torch.native import wavio
+from cacophony_tpu_torch.parallel import make_mesh
+from cacophony_tpu_torch.parallel.mesh import coalesced
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
 from cacophony_tpu_torch.runtime.continuous import ContinuousCaptioner
 from cacophony_tpu_torch.runtime.gallery import GalleryIndex
 from cacophony_tpu_torch.train import runner, train
+from cacophony_tpu_torch.utils import flops
 
 SEED = 0
 DEVICE = "cuda"
@@ -2942,6 +2979,449 @@ def eval_hear_phase(label):
                                           "wall_s": wall}
 
 
+# Phase 18: the modules ported last.  The HF RoBERTa files are
+# written at roberta-base width (12 × 768, 12 heads, MLP 3072, 50 265 words,
+# 514 positions: the text tower caco_base imports); the mesh is one rank on
+# NCCL (the card's machine has one card, and NCCL takes one rank a card).
+HF_SEED = SEED + 18
+DP_STEPS, DP_TIMED = 3, 7
+RESAMPLE = ((44_100, 5, 32), (48_000, 10, 16))  # source rate, seconds, clips
+RESAMPLE_ATOL = 1e-5
+SAFETENSORS_DTYPE = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+
+
+def roberta_tree(cfg, rs):
+    """A FlaxRobertaModel tree at cfg's widths, seeded (numpy fp32)."""
+    d, inter = cfg.hidden_size, cfg.intermediate_size
+
+    def normal(*shape):
+        return rs.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def dense(i, o):
+        return {"kernel": normal(i, o), "bias": normal(o)}
+
+    def ln():
+        return {"scale": 1 + normal(d), "bias": normal(d)}
+
+    def layer():
+        return {"attention": {"self": {"query": dense(d, d), "key": dense(d, d),
+                                       "value": dense(d, d)},
+                              "output": {"dense": dense(d, d), "LayerNorm": ln()}},
+                "intermediate": {"dense": dense(d, inter)},
+                "output": {"dense": dense(inter, d), "LayerNorm": ln()}}
+
+    return {"embeddings": {"word_embeddings": {"embedding": normal(cfg.vocab_size, d)},
+                           "position_embeddings": {"embedding": normal(cfg.max_position_embeddings, d)},
+                           "token_type_embeddings": {"embedding": normal(cfg.type_vocab_size, d)},
+                           "LayerNorm": ln()},
+            "encoder": {"layer": {str(i): layer() for i in range(cfg.num_layers)}},
+            "pooler": {"dense": dense(d, d)}}
+
+
+def roberta_state_dict(tree, prefix="roberta."):
+    """The tree in the torch layout: `(out, in)` Linear weights, LayerNorm
+    weight / bias, `*_embeddings.weight`, a position_ids buffer."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+                continue
+            parent = path[-1]
+            leaf = {"kernel": "weight", "embedding": "weight", "scale": "weight"}.get(k, k)
+            t = torch.from_numpy(np.ascontiguousarray(v.T if k == "kernel" else v))
+            out[prefix + ".".join(path + [leaf])] = t
+        return out
+
+    walk(tree, [])
+    out[prefix + "embeddings.position_ids"] = torch.arange(
+        tree["embeddings"]["position_embeddings"]["embedding"].shape[0])[None]
+    return out
+
+
+def write_safetensors(path, tensors):
+    """The safetensors layout: an 8-byte little-endian header length, a JSON
+    header (dtype, shape, data_offsets), then the tensors' bytes."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    tensors = {k: t.contiguous() for k, t in tensors.items() if t.dtype in SAFETENSORS_DTYPE}
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": SAFETENSORS_DTYPE[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.view(-1).view(torch.uint8).numpy().data)
+
+
+def write_hf_dirs(root, cfg, tree):
+    """One directory per format, each with a config.json; → {format: dir}."""
+    config = {"model_type": "roberta", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.intermediate_size,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "type_vocab_size": cfg.type_vocab_size}
+    dirs = {}
+    for fmt in hf.FORMATS:
+        d = os.path.join(root, fmt.split(".")[0])
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        path = os.path.join(d, fmt)
+        if fmt == "flax_model.msgpack":
+            with open(path, "wb") as f:
+                msgpack.dump(tree, f)
+        elif fmt == "model.safetensors":
+            write_safetensors(path, roberta_state_dict(tree, prefix=""))
+        else:
+            torch.save(roberta_state_dict(tree), path)
+        dirs[fmt] = d
+    return dirs
+
+
+def tower_equals(text, source) -> bool:
+    """model.text's embeddings and blocks == the imported tree, bit for bit."""
+    params = dict(text.named_parameters())
+    return all(torch.equal(params[k].detach().cpu(), torch.from_numpy(np.asarray(v)))
+               for k, v in source.items())
+
+
+def hf_phase(cfg, label, tmp, data, tok):
+    """Phase 18a: the three HF formats at roberta-base width onto the card,
+    then `runner --init-text-from-hf` for 2 bf16 steps."""
+    n = cfg.audio.num_layers
+    print(f"phase 18a: HF RoBERTa import at roberta-base width ({cfg.text.num_layers} × "
+          f"{cfg.text.hidden_size}, {cfg.text.num_heads} heads, MLP {cfg.text.intermediate_size}, "
+          f"{cfg.text.vocab_size} words, {cfg.text.max_position_embeddings} positions)")
+    tree = roberta_tree(cfg.text, np.random.default_rng(HF_SEED))
+    source = bridge.jax_state_dict(convert.convert_hf_roberta(tree))
+    count = sum(int(np.prod(v.shape)) for k, v in bridge.jax_state_dict(tree).items())
+    t0 = time.perf_counter()
+    dirs = write_hf_dirs(tmp, cfg.text, tree)
+    sizes = {fmt: os.path.getsize(os.path.join(d, fmt)) for fmt, d in dirs.items()}
+    print(f"  {count} parameters ({count / 1e6:.1f} M with the HF pooler); written in "
+          f"{time.perf_counter() - t0:.1f} s: {sizes} bytes")
+    model = caco_init(cfg, torch.Generator().manual_seed(HF_SEED)).to(DEVICE)
+    pooler = {k: v.clone() for k, v in model.text.pooler.state_dict().items()}
+    load_s, equal = {}, {}
+    for fmt, d in dirs.items():
+        with torch.no_grad():
+            for k, p in model.text.named_parameters():
+                if k.startswith(("embeddings.", "blocks.")):
+                    p.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hf.load_hf_text_tower(model, d)
+        torch.cuda.synchronize()
+        load_s[fmt] = time.perf_counter() - t0
+        equal[fmt] = tower_equals(model.text, source)
+    pooler_kept = all(torch.equal(model.text.pooler.state_dict()[k], v) for k, v in pooler.items())
+    print(f"  load onto the card (s): {load_s}; each equals the source bit for bit: {equal}; "
+          f"the text pooler kept: {pooler_kept} ({label})")
+    check(all(equal.values()), f"an HF format did not load the source bit for bit: {equal}")
+    check(pooler_kept, "the HF import changed the text pooler")
+    del model
+    for fmt in ("model.safetensors", "pytorch_model.bin"):
+        shutil.rmtree(dirs[fmt])
+    work = os.path.join(tmp, "work")
+    argv = ["--stage", "caco", "--data-dir", data, "--workdir", work, "--tokenizer", tok,
+            "--batch-size", str(TRAIN_BATCH), "--buffer-seconds", "10", "--patches-seq-len", "500",
+            "--steps", "2", "--total-steps", "5", "--warmup-steps", "1", "--checkpoint-every", "1",
+            "--log-every", "1", "--dtype", "bfloat16", "--device", DEVICE,
+            "--init-text-from-hf", dirs["flax_model.msgpack"]]
+    (state, _), got = drive("runner --init-text-from-hf, 2 steps", lambda: run_main(argv),
+                            {"k4": 2 * n, "k7": 2 * n, "k5": 0, **NO_SERVING_KERNELS})
+    check(state.step == 2, f"the runner ended at step {state.step}")
+    del state
+    saved = torch.load(os.path.join(work, "checkpoints", "step_00000001", ckpt_io.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=True, mmap=True)["params"]
+    after_1 = all(torch.equal(saved[f"text.{k}"], torch.from_numpy(np.asarray(v)))
+                  for k, v in source.items())
+    print(f"  after step 1 (rate 0 at step 0) the text tower equals the import: {after_1}")
+    check(after_1, "the runner's text tower after step 1 is not the HF import")
+    shutil.rmtree(work)
+    return got, {"parameters": count, "file_bytes": sizes, "load_s": load_s,
+                 "bit_equal": equal, "after_step_1_equal": after_1}
+
+
+def step_profile(fn):
+    """fn once under torch.profiler (device activity) → (device busy ms: the
+    union of its device intervals; device operations; the device ms of its
+    NCCL kernels; their count)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    nccl = [e.time_range for e in events if "nccl" in e.name.lower()]
+    return busy / 1e3, len(events), sum(r.end - r.start for r in nccl) / 1e3, len(nccl)
+
+
+def dp_runs(cfg, tc, model, init, batch, mesh, expect):
+    """DP_STEPS steps from `init` without the mesh, with it (its launches
+    checked against `expect`), and without it again; → the three runs'
+    (losses, parameters) and the mesh run's launches."""
+
+    def run(m):
+        model.load_state_dict(init)
+        state = train.init_train_state(model, tc)
+        step = train.make_caco_train_step(cfg, tc, mesh=m)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        losses = []
+        for _ in range(DP_STEPS):
+            state, met = step(state, batch, gen)
+            losses.append(float(met["loss"]))
+        return losses, {k: v.clone() for k, v in model.state_dict().items()}
+
+    ref = run(None)
+    got, counts = drive(f"{_dt_name(cfg.dtype)} dp step at world 1 x{DP_STEPS}",
+                        lambda: run(mesh), expect)
+    return ref, got, run(None), counts
+
+
+def max_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def dp_step_phase(cfg, rs, mesh, label):
+    """Phase 18b: the stage-2 step under a one-rank mesh against the step
+    without one, from the same parameters and generator.  bf16's K7 sums dQ
+    with float atomics, so its step does not repeat itself bit for bit:
+    there the losses before the first update (the rate is 0 at step 0) are
+    held bit for bit, the gradient sum at world 1 is held to be a copy, and
+    the parameters are reported against the spread of two runs without the
+    mesh.  fp32 (no K7 at 500 patches) is held bit for bit where its step
+    repeats itself."""
+    n = cfg.audio.num_layers
+    tc = train.TrainConfig(warmup_steps=1, total_steps=100)
+    print(f"phase 18b: the dp step at world 1 (NCCL), caco_base, B={TRAIN_BATCH}, 500 patches, "
+          f"{TEXT_LEN} tokens, {DP_STEPS} steps from one init, without / with / without the mesh")
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(cfg, rs, TRAIN_BATCH, 10, 500)
+    out = {}
+    for dtype, expect in ((torch.bfloat16, {"k4": n * DP_STEPS, "k7": n * DP_STEPS}),
+                          (torch.float32, {"k4": n * DP_STEPS, "k7": 0})):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ref, got, ref2, counts = dp_runs(c, tc, model, init, batch, mesh,
+                                         {**expect, "k5": 0, **NO_SERVING_KERNELS})
+        repeat = ref[0] == ref2[0] and max_diff(ref[1], ref2[1]) == 0.0
+        bit = ref[0] == got[0] and max_diff(ref[1], got[1]) == 0.0
+        name = _dt_name(dtype)
+        print(f"  {name}: losses without / with / without {ref[0]} / {got[0]} / {ref2[0]}; "
+              f"max |Δθ| with vs without {max_diff(got[1], ref[1]):.3e}, without vs without "
+              f"{max_diff(ref2[1], ref[1]):.3e}; the step repeats itself bit for bit: {repeat}; "
+              f"with the mesh bit-identical: {bit}")
+        check(got[0][:2] == ref[0][:2], f"{name}: the dp step's losses before the first update "
+                                        "differ from the step without a mesh")
+        if repeat:
+            check(bit, f"{name}: the dp step at world 1 differs from the step without a mesh")
+        out[name] = {"losses": {"none": ref[0], "mesh": got[0], "none_again": ref2[0]},
+                     "max_abs_diff_mesh": max_diff(got[1], ref[1]),
+                     "max_abs_diff_repeat": max_diff(ref2[1], ref[1]),
+                     "repeatable": repeat, "bit_identical": bit}
+        if dtype == torch.bfloat16:
+            launches_ = counts
+        del ref, got, ref2
+    # the gradient sum at world 1 is a copy: one bf16 backward's gradients
+    # through the step's coalesced all-reduce
+    c = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(init)
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = train.make_caco_loss(c, tc)(model, batch, torch.Generator(device=DEVICE).manual_seed(SEED))
+    loss.backward()
+    grads = [p.grad.clone() for p in model.parameters()]
+    coalesced(grads, lambda flat: dist.all_reduce(flat, group=mesh.get_group("dp")))
+    copy = all(torch.equal(g, p.grad) for g, p in zip(grads, model.parameters()))
+    print(f"  the coalesced gradient all-reduce at world 1 leaves {len(grads)} gradients bit for "
+          f"bit: {copy}")
+    check(copy, "the one-rank gradient all-reduce is not a copy")
+    out["all_reduce_is_copy"] = copy
+    del grads, loss
+    model.load_state_dict(init)
+    del init
+    state = train.init_train_state(model, tc)
+    steps = {"none": train.make_caco_train_step(c, tc), "mesh": train.make_caco_train_step(
+        c, tc, mesh=mesh)}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    ms = {"none": [], "mesh": []}
+    for i in range(DP_TIMED + 1):
+        for k in (("none", "mesh") if i % 2 else ("mesh", "none")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = steps[k](state, batch, gen)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            if i:  # the first round warms up
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+
+    def one_step(k):
+        nonlocal state
+        state, met = steps[k](state, batch, gen)
+        float(met["loss"])
+
+    prof = {k: step_profile(lambda: one_step(k)) for k in ("none", "mesh")}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"  bf16 step ms, {DP_TIMED} each in turns: without a mesh {sorted(ms['none'])} (median "
+          f"{med['none']:.2f}), with it {sorted(ms['mesh'])} (median {med['mesh']:.2f}); device "
+          f"busy a step without / with {prof['none'][0]:.2f} / {prof['mesh'][0]:.2f} ms "
+          f"({prof['none'][1]} / {prof['mesh'][1]} device operations); the gradient "
+          f"all-reduce's NCCL kernels {prof['mesh'][2]:.3f} ms ({prof['mesh'][3]} kernels) ({label})")
+    del state, model
+    return launches_, dict(out, step_ms=ms, median_step_ms=med,
+                           device_busy_ms={k: v[0] for k, v in prof.items()},
+                           device_ops={k: v[1] for k, v in prof.items()},
+                           nccl_device_ms=prof["mesh"][2], nccl_kernels=prof["mesh"][3])
+
+
+def dp_engine_phase(cfg, tok, wavs, a_emb, mesh, label):
+    """Phase 18c: the bf16 10-s engine with a one-rank mesh against the
+    engine without one, on phase 5's clips and weights."""
+    n_buckets = -(-len(wavs) // BATCH)
+    print(f"phase 18c: bf16 10-s CacoEngine with a one-rank mesh, {len(wavs)} clips")
+    model = caco_init(cfg, torch.Generator().manual_seed(SEED))
+    engine = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                        dtype=torch.bfloat16)
+    engine_dp = CacoEngine(cfg, model, tokenizer=tok, device=DEVICE, batch_size=BATCH,
+                           dtype=torch.bfloat16, mesh=mesh)
+    ref = engine.embed_audio(wavs)
+    got, counts = drive("bf16 10-s embed_audio, one-rank mesh", lambda: engine_dp.embed_audio(wavs),
+                        {"k1_layer": cfg.audio.num_layers * n_buckets, "k2_block": 0,
+                         "k3_block": 0, "log_mel": 0, **dict.fromkeys(K1_PARTS)})
+    bit, phase5 = bool(np.array_equal(got, ref)), bool(np.array_equal(got, a_emb))
+    print(f"  bit-identical to the engine without a mesh: {bit} (to phase 5's: {phase5})")
+    check(bit, "the engine under a one-rank mesh differs from the engine without one")
+    bench = [(0.1 * np.random.RandomState(SEED + 18).randn(10 * 16000)).astype(np.float32)
+             for _ in range(4 * BATCH)]
+    rates = {"none": [], "mesh": []}
+    for k in ("none", "mesh", "mesh", "none"):
+        rates[k] += clips_per_s(engine if k == "none" else engine_dp, bench, runs=1)
+    print(f"  embed_audio clips/s without / with the mesh: {rates['none']} / {rates['mesh']} "
+          f"(10-s clips, bf16, batch {BATCH}, {len(bench)} clips a run; {label})")
+    patch = engine.patch
+    del engine, engine_dp, model
+    return counts, {"bit_identical": bit, "equal_to_phase_5": phase5, "clips_per_s": rates,
+                    "patches_seq_len": patch.patches_seq_len}
+
+
+def dp_gallery_phase(mesh, label):
+    """Phase 18d: phase 16d's gallery with a one-rank mesh against one without."""
+    rs = np.random.default_rng(SEED)
+    rows = rs.standard_normal((GALLERY_ROWS, GALLERY_DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+    queries = rows[rs.choice(GALLERY_ROWS, GALLERY_QUERIES, replace=False)] + \
+        0.05 * rs.standard_normal((GALLERY_QUERIES, GALLERY_DIM), dtype=np.float32)
+    dead = rs.choice(GALLERY_ROWS, GALLERY_ROWS // 100, replace=False)
+    print(f"phase 18d: GalleryIndex with a one-rank mesh, {GALLERY_ROWS} × {GALLERY_DIM}, "
+          f"{len(dead)} deleted, {GALLERY_QUERIES} queries, top-10")
+    galleries = {}
+    for k, m in (("none", None), ("mesh", mesh)):
+        g = GalleryIndex(GALLERY_DIM, logit_scale=1.7, slab=GALLERY_SLAB, device=DEVICE, mesh=m)
+        part = GALLERY_ROWS // 4
+        for i in range(0, GALLERY_ROWS, part):
+            g.add(rows[i:i + part])
+        g.delete(dead)
+        galleries[k] = g
+    a, b = galleries["none"].search(queries, k=10), galleries["mesh"].search(queries, k=10)
+    same = bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2]
+                and galleries["mesh"].num_deleted == len(dead))
+    ms = {"none": [], "mesh": []}
+    for k in ("none", "mesh") * 3 + ("mesh", "none") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        galleries[k].search(queries, k=10)
+        ms[k].append((time.perf_counter() - t0) * 1e3)
+    print(f"  search equal to the gallery without a mesh: {same}; ms without / with the mesh "
+          f"{sorted(ms['none'])} / {sorted(ms['mesh'])} ({label})")
+    check(same, "the gallery under a one-rank mesh searches differently")
+    return {"equal": same, "search_ms": ms}
+
+
+def resample_phase(label):
+    """Phase 18e: resample_fft on the card against resample_fft_host."""
+    print("phase 18e: resample_fft (torch.fft on the card) vs resample_fft_host (numpy)")
+    rs = np.random.RandomState(SEED + 18)
+    out = {}
+    for rate, seconds, clips in RESAMPLE:
+        x = rs.randn(clips, rate * seconds).astype(np.float32)
+        n_out = 16_000 * seconds
+        dev = torch.from_numpy(x).to(DEVICE)
+        got = dsp.resample_fft(dev, n_out).cpu().numpy()
+        t0 = time.perf_counter()
+        ref = np.stack([dsp.resample_fft_host(c, n_out) for c in x])
+        host_ms = (time.perf_counter() - t0) * 1e3 / clips
+        err = float(np.abs(got - ref).max())
+        card_ms = cuda_ms(lambda: dsp.resample_fft(dev, n_out), 10) / clips
+        print(f"  {clips} clips of {seconds} s at {rate} Hz → 16 kHz: max |card − host| {err:.2e} "
+              f"(≤ {RESAMPLE_ATOL}); {card_ms:.4f} ms a clip on the card (batched), {host_ms:.3f} "
+              f"ms on the host ({label})")
+        check(got.shape == ref.shape and err <= RESAMPLE_ATOL,
+              f"resample_fft at {rate} Hz disagrees with the host: {err}")
+        out[f"{rate}_{seconds}s"] = {"max_abs_err": err, "card_ms_per_clip": card_ms,
+                                     "host_ms_per_clip": host_ms}
+    return out
+
+
+def mfu_phase(cfg, patches_seq_len, clips_per_s_bf16, train_step_ms, label):
+    """Phase 18f: mfu and train_mfu from this run's rates (utils/flops.py)."""
+    name = torch.cuda.get_device_name(0)
+    peak = flops.device_peak_flops(name)
+    key = next((k for k in flops.BF16_PEAK_FLOPS if k in name.lower()), None)
+    check(peak is not None, f"no bf16 peak for {name}")
+    front = configs.FrontendConfig()
+    per_clip = flops.pipeline_matmul_flops(cfg, front, configs.PatchConfig(
+        patches_seq_len=patches_seq_len), 10 * front.sample_rate)
+    per_sample = flops.caco_train_step_matmul_flops(cfg, 500, TEXT_LEN)
+    mfu = per_clip * clips_per_s_bf16 / peak
+    train_mfu = TRAIN_BATCH * per_sample / (train_step_ms / 1e3) / peak
+    print(f"phase 18f: mfu {mfu:.4f} ({per_clip:.4e} matmul FLOP a 10-s clip × "
+          f"{clips_per_s_bf16:.1f} clips/s); train_mfu {train_mfu:.4f} ({TRAIN_BATCH} × "
+          f"{per_sample:.4e} FLOP a step / {train_step_ms:.2f} ms, phase 10's median); peak "
+          f"{key!r} = {peak:.4g} FLOP/s ({label})")
+    return {"mfu": mfu, "train_mfu": train_mfu, "flop_per_clip": per_clip,
+            "flop_per_sample": per_sample, "peak_key": key, "peak_flops": peak}
+
+
+def parallel_phase(cfg, tok, wavs, a_emb, train_step_ms, label):
+    """Phase 18: the HF import and runner, the dp step, engine and gallery
+    under a one-rank NCCL mesh, resample_fft, the MFU readings.  The mesh's
+    process group and the temporary directory are removed at the end."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_parallel_")
+    try:
+        data, tok_dir = write_runner_data(tmp, np.random.RandomState(SEED + 18))
+        hf_launches, hf_out = hf_phase(cfg, label, tmp, data, tok_dir)
+    finally:
+        shutil.rmtree(tmp)
+    mesh = make_mesh(dp=1, device=DEVICE)
+    try:
+        check(dist.get_backend() == "nccl", f"the mesh's backend is {dist.get_backend()}")
+        step_launches, step = dp_step_phase(cfg, np.random.RandomState(SEED + 18), mesh, label)
+        engine_launches, engine = dp_engine_phase(cfg, tok, wavs, a_emb, mesh, label)
+        gallery = dp_gallery_phase(mesh, label)
+    finally:
+        dist.destroy_process_group()
+    resample = resample_phase(label)
+    mfu = mfu_phase(cfg, engine["patches_seq_len"], float(np.median(engine["clips_per_s"]["none"])),
+                    train_step_ms, label)
+    wall = time.perf_counter() - t0
+    print(f"  phase 18 took {wall:.1f} s ({label})")
+    launches_ = {"hf_runner": hf_launches, "dp_step": step_launches, "dp_engine": engine_launches}
+    return launches_, {"hf": hf_out, "dp_step": step, "dp_engine": engine, "dp_gallery": gallery,
+                       "resample": resample, "mfu": mfu, "wall_s": wall}
+
+
 def clips_per_s(engine, wavs, runs=2):
     engine.embed_audio(wavs[:BATCH])  # warm
     rates = []
@@ -3154,6 +3634,7 @@ def run() -> dict:
           f"{mae_train['bfloat16']['peak_gib']:.2f} / {mae_train['float32']['peak_gib']:.2f} GiB "
           f"({label})")
     eval_launches, hear_launches, eval_hear = eval_hear_phase(label)
+    par_launches, par = parallel_phase(cfg, tok, wavs, a_emb, train_bf16["median_step_ms"], label)
     err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
@@ -3183,7 +3664,9 @@ def run() -> dict:
                 # phase 17: every eval CLI run on its paths (zs fp32 and bf16,
                 # ar bf16 and fp32, caption bf16), and both HEAR runners
                 "eval_launches": sum(got[key] for got in eval_launches.values()),
-                "hear_launches": sum(got[key] for got in hear_launches.values())}
+                "hear_launches": sum(got[key] for got in hear_launches.values()),
+                # phase 18: the runner from HF files, the dp step and the dp engine
+                "parallel_launches": sum(got[key] for got in par_launches.values())}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -3224,6 +3707,9 @@ def run() -> dict:
                 "eval": {run: {k: got[k] for k in ("k1_layer", "k2_block", "k3_block")}
                          for run, got in eval_launches.items()},
                 "hear": {run: got["k2_block"] for run, got in hear_launches.items()}}),
+            "parallel": dict(par, launches={
+                run: {k: got[k] for k in ("k1_layer", "k4", "k7")}
+                for run, got in par_launches.items()}),
             "gpu": label}
 
 

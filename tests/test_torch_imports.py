@@ -19,14 +19,11 @@ import cacophony_tpu_torch
 JAX_ROOT = os.path.dirname(cacophony_tpu.__file__)
 PORT_ROOT = os.path.dirname(cacophony_tpu_torch.__file__)
 
-# JAX subpackages the port has not reached (ROADMAP.md queue A).
-UNPORTED_PACKAGES = {
-    "parallel": "item 7",
-}
+# JAX subpackages the port has not reached (ROADMAP.md queue A): none left.
+UNPORTED_PACKAGES = {}
 # Names of a ported package that the port leaves out, and why.
 LEFT_OUT = {
     "ops": {"attention_init": "JAX-only: the port's parameters are nn.Modules"},
-    "frontend": {"resample_fft": "queue A item 9 (the device FFT resample)"},
 }
 # Names the port exports where the JAX package has no counterpart.
 PORT_ONLY = {
