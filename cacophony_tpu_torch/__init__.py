@@ -27,9 +27,10 @@ Ported so far:
   folder of audio files (host decode in native/, the loader in
   data/pipeline.py), saving and resuming its state, its text tower
   optionally started from a local HF RoBERTa directory (checkpoints/hf.py);
-- data parallelism over a process-group mesh (parallel/: the training
-  step on the global batch, the engine and the gallery split by rows,
-  `runner --dp` under torchrun); tensor parallelism is not ported;
+- data and tensor parallelism over a process-group mesh (parallel/: the
+  training steps on the global batch, Megatron's split of heads and MLP
+  blocks under tp, the engine and the gallery split by rows,
+  `runner --dp` / `--tp` under torchrun);
 - the matmul-FLOP counters and device peaks (utils/flops.py) and the
   device FFT resample (`frontend.dsp.resample_fft`).
 """

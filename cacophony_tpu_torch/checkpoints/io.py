@@ -15,8 +15,11 @@ checkpoints and training state in and out (cacophony_tpu/checkpoints/io.py).
   AdamW's `mu` (in its own dtype, bf16 by default) and `nu` in
   `named_parameters()` order, `count` and `step`.  Under a dp mesh the
   replicas are equal: rank 0 alone writes, then every rank waits at a
-  barrier; every rank reads on resume.  The file is a one-device run's, so
-  a dp run resumes on one device and the other way round.
+  barrier; every rank reads on resume.  Under tp the parameters and both
+  moments are gathered over tp into whole leaves before rank 0 writes, and
+  a sharded model keeps its blocks of them on load.  The file is a
+  one-device run's, so a run of any (dp, tp) resumes on one device and the
+  other way round.
 
 - `load_audiomae(path)`: a released-layout stage-1 file (`AudioEncoder_0`,
   `AudioDecoder_0`) → an `AudioMAE` on the card unless `device="cpu"`, the
@@ -38,6 +41,7 @@ import torch.distributed as dist
 from cacophony_tpu_torch.checkpoints.bridge import params_from_jax
 from cacophony_tpu_torch.checkpoints.convert import convert_audiomae_params, convert_caco_params
 from cacophony_tpu_torch.checkpoints.msgpack import restore_checkpoint
+from cacophony_tpu_torch.parallel.mesh import gather_tensors, shard_tensors
 from cacophony_tpu_torch.configs import (
     AudioDecoderConfig,
     AudioEncoderConfig,
@@ -277,29 +281,39 @@ def _steps(path: str):
                                              for d in os.listdir(path)) if m)
 
 
+def _train_state_payload(state) -> dict:
+    """What a train-state file holds, with whole leaves: a tp-sharded
+    model's parameters and moments are gathered over tp (a collective)."""
+    model, opt = state.params, state.opt_state
+    names = [n for n, _ in model.named_parameters()]
+    params, mu, nu = [p.detach() for _, p in model.named_parameters()], list(opt.mu), list(opt.nu)
+    if getattr(model, "tp_layout", None):
+        params, mu, nu = (gather_tensors(model, ts) for ts in (params, mu, nu))
+    sd = model.state_dict()
+    sd.update(zip(names, params))
+    return {"params": sd, "names": names, "mu": mu, "nu": nu, "count": int(opt.count),
+            "step": int(state.step)}
+
+
 def save_train_state(state, path: str, *, keep: int = 3, mesh=None) -> str:
     """A TrainState (train/train.py) to `path/step_%08d/`, written through a
     temporary directory and a rename; prunes all but the newest `keep`.
-    Under a mesh rank 0 writes and every rank returns after a barrier."""
-    model, opt, step = state.params, state.opt_state, int(state.step)
-    final = os.path.join(path, f"step_{step:08d}")
+    Under a mesh rank 0 writes (whole leaves, gathered over tp) and every
+    rank returns after a barrier."""
+    payload = _train_state_payload(state)
+    final = os.path.join(path, f"step_{payload['step']:08d}")
+    if mesh is None or dist.get_rank() == 0:
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, TRAIN_STATE_FILE))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        if keep:
+            for old in _steps(path)[:-keep]:
+                shutil.rmtree(os.path.join(path, f"step_{old:08d}"), ignore_errors=True)
     if mesh is not None:
-        if dist.get_rank() == 0:
-            save_train_state(state, path, keep=keep)
         dist.barrier()
-        return final
-    names = [n for n, _ in model.named_parameters()]
-    tmp = final + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save({"params": model.state_dict(), "names": names, "mu": list(opt.mu),
-                "nu": list(opt.nu), "count": int(opt.count), "step": step},
-               os.path.join(tmp, TRAIN_STATE_FILE))
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
-    if keep:
-        for old in _steps(path)[:-keep]:
-            shutil.rmtree(os.path.join(path, f"step_{old:08d}"), ignore_errors=True)
     return final
 
 
@@ -311,7 +325,8 @@ def latest_step(path: str) -> Optional[int]:
 def load_train_state(path: str, like, step: Optional[int] = None):
     """Restore a TrainState saved by save_train_state into `like` (a
     TrainState of the same model and optimizer): the parameters and the
-    moments are copied in place, each keeping its device and dtype."""
+    moments are copied in place, each keeping its device and dtype; a
+    tp-sharded model takes its blocks of the whole leaves."""
     from cacophony_tpu_torch.train.train import AdamWState, TrainState
 
     if step is None:
@@ -326,9 +341,12 @@ def load_train_state(path: str, like, step: Optional[int] = None):
     if saved["names"] != names:
         raise ValueError("the saved optimizer state is for another model: its parameter "
                          "names differ")
-    model.load_state_dict(saved["params"])
+    params = saved["params"]
+    params.update(zip(names, shard_tensors(model, [params[n] for n in names])))
+    model.load_state_dict(params)
     opt = like.opt_state
-    for mine, theirs in zip(list(opt.mu) + list(opt.nu), saved["mu"] + saved["nu"]):
+    moments = shard_tensors(model, saved["mu"]) + shard_tensors(model, saved["nu"])
+    for mine, theirs in zip(list(opt.mu) + list(opt.nu), moments):
         if mine.dtype != theirs.dtype or mine.shape != theirs.shape:
             raise ValueError(f"saved moment {tuple(theirs.shape)} {theirs.dtype} vs "
                              f"{tuple(mine.shape)} {mine.dtype}")

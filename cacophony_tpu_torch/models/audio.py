@@ -27,7 +27,12 @@ In training (`train=True`) every layer is `vit_block`, as in JAX, where the
 fused routes are off in training (`FUSED_IN_TRAIN = False`, audio.py:55):
 attention through K4 / K5 (whose backwards are K7 or autograd of the plain
 math) while attention dropout is 0, dropout and drop-path from a
-`torch.Generator`, and the `act_dense` MLP tail.
+`torch.Generator`, and the `act_dense` MLP tail.  Under tensor
+parallelism (`parallel.shard_params`) the training layers run Megatron's
+split — the attention on this rank's heads, the MLP on its block of the
+hidden features (`dense`'s column- and row-parallel forms) — and the
+MLP-hidden dropout draws its mask at the global width and keeps this
+rank's block.  Inference runs on whole parameters.
 
 The JAX package computes the MLP and the einsum attention in XLA outside
 any Pallas kernel, so they stay PyTorch products here.
@@ -62,6 +67,7 @@ from cacophony_tpu_torch.models.layers import (
 )
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.ops.attention import Attention, multi_head_attention
+from cacophony_tpu_torch.parallel.tensor import tp_shard
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default (reference audio tower uses it)
 
@@ -159,7 +165,8 @@ def vit_block(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads: int
     if det or dropout_rate == 0.0:
         h = _mlp(blk.mlp, h, dtype)
     else:
-        h = dropout(generator, silu(dense(blk.mlp.w1, h, dtype)), dropout_rate, det)
+        h = dropout(generator, silu(dense(blk.mlp.w1, h, dtype)), dropout_rate, det,
+                    tp=tp_shard(blk.mlp.w1))
         h = dense(blk.mlp.w2, h, dtype)
     h = dropout(generator, h, dropout_rate, det)
     return x + drop_path(generator, h, drop_path_rate, det)
@@ -205,6 +212,8 @@ def _run_blocks(blocks: nn.ModuleList, cfg, x: torch.Tensor, mask: torch.Tensor,
     """A layer stack by the encoder's rules (JAX `_run_blocks`): inference
     takes `layer_route`'s route for x's length and cfg's widths; training
     runs `vit_block` on every layer, its dropout masks from `generator`."""
+    if not train and any(tp_shard(blk.attn.qkv) is not None for blk in blocks):
+        raise ValueError("inference runs on whole parameters: gather_params first")
     route = None if train else ea.layer_route(x.shape[1], cfg.hidden_size,
                                               cfg.intermediate_size, dtype)[0]
     for blk in blocks:

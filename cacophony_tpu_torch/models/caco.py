@@ -34,6 +34,7 @@ from torch import nn
 from cacophony_tpu_torch.configs import CacoConfig
 from cacophony_tpu_torch.models.audio import AudioEncoder, audio_encoder_apply
 from cacophony_tpu_torch.models.layers import Dense, cast_dense, dense, normal_init
+from cacophony_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp, tp_shard
 from cacophony_tpu_torch.models.text import (
     CaptionDecoder,
     KVCache,
@@ -78,14 +79,23 @@ def caco_init(cfg: CacoConfig, generator: torch.Generator) -> CacoModel:
 def audio_pooler_apply(p: AudioPooler, cfg: CacoConfig, hidden: torch.Tensor,
                        mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Multi-head single-query attention pool in cfg.dtype; softmax in fp32
-    (reference caco.py:19-54)."""
+    (reference caco.py:19-54).  Under tensor parallelism (`kv` tp-sharded)
+    each rank pools its block of the heads: its part of the replicated
+    `query` through `copy_to_tp` (the query's gradient is summed over tp),
+    the heads' outputs gathered over tp before the replicated `out`."""
     m, hd = cfg.num_attention_pool_heads, cfg.pool_head_dim
+    query, tp = p.query, tp_shard(p.kv)
+    if tp is not None:
+        if m % tp.size:
+            raise ValueError(f"tp={tp.size} does not divide {m} pool heads")
+        m //= tp.size
+        query = copy_to_tp(query, tp.group)[tp.block(query.shape[0])]
     kv = dense(p.kv, hidden, cfg.dtype)
     k, v = kv.chunk(2, dim=-1)
     b, s, _ = k.shape
     k = k.reshape(b, s, m, hd)
     v = v.reshape(b, s, m, hd)
-    q = p.query.reshape(m, hd).to(hidden.dtype)
+    q = query.reshape(m, hd).to(hidden.dtype)
     # sqrt(hd) in q's dtype, as a Python number (a small tensor copied to the
     # card would wait for the device)
     q = q / float(torch.tensor(float(hd), dtype=q.dtype).sqrt())
@@ -94,6 +104,8 @@ def audio_pooler_apply(p: AudioPooler, cfg: CacoConfig, hidden: torch.Tensor,
         logits = torch.where(mask[:, None] > 0, logits.float(), torch.finfo(torch.float32).min)
     w = torch.softmax(logits.float(), dim=-1).to(hidden.dtype)
     out = torch.einsum("bhj,bjhd->bhd", w, v).reshape(b, m * hd)
+    if tp is not None:
+        out = gather_from_tp(out, tp.group)
     return dense(p.out, out, cfg.dtype)
 
 

@@ -15,6 +15,14 @@ the JAX package's custom backwards (`CUSTOM_VJP = True`, its default) as
 `torch.autograd.Function`s, and `dropout` / `drop_path` draw their masks
 from an explicit `torch.Generator` (`DROPOUT_RECOMPUTE = False`, its
 default: the masks are kept for the backward by autograd).
+
+Tensor parallelism: a Dense that `parallel.shard_params` sharded carries a
+`TPShard` (parallel/tensor.py), and `dense` / `act_dense` run it as
+Megatron does — a column-parallel layer takes `copy_to_tp` of its input, a
+row-parallel layer sums its partial products over tp (`reduce_from_tp`)
+and adds its bias once, after the sum.  `dropout` over a sharded
+activation draws its mask at the global shape and keeps this rank's block,
+so the generator advances as in one process and draws the same masks.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cacophony_tpu_torch.parallel.tensor import TPShard, copy_to_tp, reduce_from_tp, tp_shard
 
 
 NEG_INF = -1e10  # mask bias value (reference roberta_text_model.py:200)
@@ -62,14 +72,30 @@ class LayerNorm(nn.Module):
 
 # ------------------------------------------------------------------- math
 
+def tp_input(p, x: torch.Tensor) -> torch.Tensor:
+    """x as a column-parallel Dense `p` takes it: `copy_to_tp(x)` where p
+    is column-sharded, else x."""
+    tp = tp_shard(p)
+    return copy_to_tp(x, tp.group) if tp is not None and tp.column else x
+
+
+def _row_output(p, partial: torch.Tensor) -> torch.Tensor:
+    """A row-parallel Dense's partial product summed over tp, plus its bias."""
+    return reduce_from_tp(partial, tp_shard(p).group) + p.b.to(partial.dtype)
+
+
 def dense(p: Dense, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b.  With `dtype`, all three are cast first (bf16 serving);
     without it the operands promote as in JAX (a bf16 x against fp32
-    weights computes in fp32)."""
+    weights computes in fp32).  A tp-sharded Dense runs column- or
+    row-parallel (module docstring)."""
     w, b = p.w, p.b
     if dtype is None:
         dtype = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dtype) @ w.to(dtype) + b.to(dtype)
+    tp = tp_shard(p)
+    if tp is not None and not tp.column:
+        return _row_output(p, x.to(dtype) @ w.to(dtype))
+    return tp_input(p, x).to(dtype) @ w.to(dtype) + b.to(dtype)
 
 
 def cast_dense(module: nn.Module, dtype: torch.dtype):
@@ -131,14 +157,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 class _ActDense(torch.autograd.Function):
     """JAX `_act_dense` (layers.py:147-182): dense(p, act(h)) whose backward
     recomputes act and its VJP from h; dw and db are computed in the compute
-    dtype and then cast to the parameters' dtype."""
+    dtype and then cast to the parameters' dtype.  Without a bias (b None:
+    a row-parallel layer, whose bias is added after the sum over tp) it is
+    act(h) @ w."""
 
     @staticmethod
     def forward(ctx, h, w, b, act, dtype):
         dt = dtype if dtype is not None else torch.promote_types(h.dtype, w.dtype)
         ctx.save_for_backward(h, w)
-        ctx.act, ctx.dt, ctx.b_dtype = act, dt, b.dtype
-        return act(h).to(dt) @ w.to(dt) + b.to(dt)
+        ctx.act, ctx.dt, ctx.b_dtype = act, dt, None if b is None else b.dtype
+        out = act(h).to(dt) @ w.to(dt)
+        return out if b is None else out + b.to(dt)
 
     @staticmethod
     def backward(ctx, g):
@@ -150,7 +179,7 @@ class _ActDense(torch.autograd.Function):
         a2 = a.detach().reshape(-1, a.shape[-1]).to(dt)
         g2 = g.reshape(-1, g.shape[-1]).to(dt)
         dw = (a2.T @ g2).to(w.dtype)
-        db = g2.sum(dim=0).to(ctx.b_dtype)
+        db = None if ctx.b_dtype is None else g2.sum(dim=0).to(ctx.b_dtype)
         da = (g.to(dt) @ w.to(dt).T).to(a.dtype)
         (dh,) = torch.autograd.grad(a, hh, da)
         return dh, dw, db, None, None
@@ -158,17 +187,27 @@ class _ActDense(torch.autograd.Function):
 
 def act_dense(p: Dense, h: torch.Tensor, act, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """`dense(p, act(h), dtype)` whose backward keeps only h (JAX `act_dense`)."""
+    tp = tp_shard(p)
+    if tp is not None and not tp.column:
+        return _row_output(p, _ActDense.apply(h, p.w, None, act, dtype))
     return _ActDense.apply(h, p.w, p.b, act, dtype)
 
 
 def dropout(generator: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, tp: Optional[TPShard] = None, dim: int = -1) -> torch.Tensor:
     """Inverted dropout (JAX layers.py:190-207): keep each value with
     probability 1 − rate, scaled by 1/(1 − rate).  The mask is drawn from
-    `generator`, which lives on x's device."""
+    `generator`, which lives on x's device.  With `tp`, x is this rank's
+    block along `dim` of a sharded activation: the mask is drawn at the
+    global shape and this rank's block kept."""
     if deterministic or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    shape = list(x.shape)
+    if tp is not None:
+        shape[dim] *= tp.size
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if tp is not None:
+        keep = keep.narrow(dim, tp.rank * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -28,6 +28,13 @@ towers read and write at `cache.index` and leave it as it is; the decode
 step advances it once, after both towers.  The cross-attention K/V of the
 decoder are computed once per utterance (`precompute_cross_kv`) and kept
 head-major, (L, B, H, S_mem, Dh), where JAX keeps merged rows.
+
+Under tensor parallelism (`parallel.shard_params`) the full-sequence
+blocks run Megatron's split through `multi_head_attention` and `dense`
+(each rank's heads, its block of the MLP's hidden features), and a
+vocabulary head that tp divides gives each rank its block of the logits
+(train/losses.py takes the cross-entropy over the blocks).  Decode runs
+on whole parameters.
 """
 
 from __future__ import annotations

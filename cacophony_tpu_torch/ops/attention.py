@@ -15,6 +15,18 @@ The full-sequence branches of the JAX `multi_head_attention` (`:89-137`,
   layout): one query position attends over the cached positions the bias
   leaves open plus its own fresh k/v, and the (B, 1, E) k/v slice goes
   back to the caller, who writes it into the cache.
+
+Under tensor parallelism (the fused QKV or K|V Dense tp-sharded by
+`parallel.shard_params`) each rank runs its H/tp heads: the column-parallel
+QKV gives their q, k and v, the row-parallel o-projection sums the heads'
+outputs over tp.  The route (K4, K5 or the einsum) is decided on the full
+width, as JAX decides it on its global shapes, and the kernel runs on the
+local heads.  Cross-attention's q Dense is replicated (no rule shards it):
+every rank computes the whole q and keeps its heads' columns through
+`copy_to_tp`, so q's gradient is summed over tp and its leaves' gradients
+come out whole and equal on every rank.  Attention-probability dropout
+draws its mask at the global (B, H, S, S) shape and keeps this rank's
+heads.
 """
 
 from __future__ import annotations
@@ -24,8 +36,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from cacophony_tpu_torch.models.layers import Dense, dense, dropout
+from cacophony_tpu_torch.models.layers import Dense, dense, dropout, tp_input
 from cacophony_tpu_torch.ops import encoder_attention as ea
+from cacophony_tpu_torch.parallel.tensor import TPShard, copy_to_tp, tp_shard
 
 
 class Attention(nn.Module):
@@ -53,7 +66,8 @@ FLASH_MASK_BIAS = -1e30  # ops/attention.py:215
 
 
 def _dense_cols(p: Dense, x: torch.Tensor, dtype, lo: int, hi: int) -> torch.Tensor:
-    """x @ w[:, lo:hi] + b[lo:hi] (the fused weight split into columns)."""
+    """x @ w[:, lo:hi] + b[lo:hi] (the fused weight split into columns; x
+    is already the column-parallel input under tp)."""
     w, b = p.w[:, lo:hi], p.b[lo:hi]
     return x.to(dtype) @ w.to(dtype) + b.to(dtype)
 
@@ -96,12 +110,15 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
            num_heads: int, dropout_rate: float = 0.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           tp: Optional[TPShard] = None) -> torch.Tensor:
     """Heads of (B, Sq, E) queries over keys and values → (B, Sq, E): q
     scaled by 1/√Dh, the additive bias in the logits' dtype, softmax in fp32
     cast back, optional attention-probability dropout.  k, v: (B, Sk, E), or
     head-major (B, H, Sk, Dh), which the per-head products read in place
-    (the decoder's precomputed cross K/V, read in every decode step)."""
+    (the decoder's precomputed cross K/V, read in every decode step).
+    With `tp`, the heads are this rank's block of tp.size·num_heads: the
+    dropout mask is drawn for all of them."""
     b, s, d = q.shape
     head_dim = d // num_heads
     q = _scale_q(q.reshape(b, s, num_heads, head_dim), head_dim)
@@ -113,7 +130,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: Optional[tor
         logits = logits + bias.to(logits.dtype)
     weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
     if dropout_rate > 0.0 and generator is not None:
-        weights = dropout(generator, weights, dropout_rate, False)
+        weights = dropout(generator, weights, dropout_rate, False, tp=tp, dim=1)
     return torch.einsum(f"bhqk,{keys}->bqhd", weights, v).reshape(b, s, d)
 
 
@@ -136,6 +153,12 @@ def multi_head_attention(p, x: torch.Tensor, *, num_heads: int,
     index, text._decode_bias), and the call returns (out, (k, v)) with the
     current token's (B, 1, E) k/v for the caller to write."""
     b, s, d = x.shape
+    tp = tp_shard(p.qkv if memory is None else p.kv)
+    heads, width = num_heads, d  # this rank's heads and their width
+    if tp is not None:
+        if num_heads % tp.size:
+            raise ValueError(f"tp={tp.size} does not divide {num_heads} heads")
+        heads, width = num_heads // tp.size, d // tp.size
     if kv_cache is not None:
         if s != 1 or memory is not None:
             raise ValueError("KV-cached attention takes one query position and no memory")
@@ -146,21 +169,24 @@ def multi_head_attention(p, x: torch.Tensor, *, num_heads: int,
         plan = ea.kernel_plan(s, d, dtype if dtype is not None else x.dtype)
         use_kernel = flash_mask is not None and dropout_rate == 0.0 and plan is not None
         if use_kernel and plan[0] == "one_shot":
-            out = ea.encoder_attention(dense(p.qkv, x, dtype), flash_mask, num_heads, causal)
+            out = ea.encoder_attention(dense(p.qkv, x, dtype), flash_mask, heads, causal, width=d)
             return dense(p.o, out, dtype)
         if use_kernel and plan[0] == "blocked" and not causal:
-            q_out = _dense_cols(p.qkv, x, dtype, 0, d)
-            kv_out = _dense_cols(p.qkv, x, dtype, d, 3 * d)
-            out = ea.encoder_attention_blocked(q_out, kv_out, flash_mask, num_heads)
+            xin = tp_input(p.qkv, x)
+            q_out = _dense_cols(p.qkv, xin, dtype, 0, width)
+            kv_out = _dense_cols(p.qkv, xin, dtype, width, 3 * width)
+            out = ea.encoder_attention_blocked(q_out, kv_out, flash_mask, heads, width=d)
             return dense(p.o, out, dtype)
-        q, k, v = dense(p.qkv, x, dtype).split(d, dim=-1)
+        q, k, v = dense(p.qkv, x, dtype).split(width, dim=-1)
     else:
         q = dense(p.q, x, dtype)
-        k, v = dense(p.kv, memory, dtype).split(d, dim=-1)
+        if tp is not None:
+            q = copy_to_tp(q, tp.group)[..., tp.block(d)]
+        k, v = dense(p.kv, memory, dtype).split(width, dim=-1)
     if bias is None and flash_mask is not None:
         allowed = flash_mask[:, None, None, :] > 0
         if causal:
             allowed = allowed & torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
         bias = torch.where(allowed, 0.0, FLASH_MASK_BIAS)
-    out = attend(q, k, v, bias, num_heads, dropout_rate, generator)
+    out = attend(q, k, v, bias, heads, dropout_rate, generator, tp)
     return dense(p.o, out, dtype)

@@ -473,41 +473,48 @@ def _xla_core(q, k, v, mask, causal, dt, s):
 
 
 class _EncoderAttention(torch.autograd.Function):
-    """K4 forward; K7 backward when `bwd_fits_vmem`, else autograd of `xla_attention`."""
+    """K4 forward; K7 backward when `bwd_fits_vmem` at the route width,
+    else autograd of `xla_attention`."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, num_heads, causal):
+    def forward(ctx, qkv, mask, num_heads, causal, width):
         ctx.save_for_backward(qkv, mask)
-        ctx.num_heads, ctx.causal = num_heads, causal
+        ctx.num_heads, ctx.causal, ctx.width = num_heads, causal, width
         return kern.attention_k4(qkv, mask, num_heads, causal)
 
     @staticmethod
     def backward(ctx, g):
         qkv, mask = ctx.saved_tensors
         g = g.to(qkv.dtype).contiguous()
-        if bwd_fits_vmem(qkv.shape[1], qkv.shape[-1] // 3, qkv.dtype):
-            return kern.attention_bwd(qkv, mask, g, ctx.num_heads, ctx.causal), None, None, None
+        if bwd_fits_vmem(qkv.shape[1], ctx.width, qkv.dtype):
+            return (kern.attention_bwd(qkv, mask, g, ctx.num_heads, ctx.causal),
+                    None, None, None, None)
         with torch.enable_grad():
             x = qkv.detach().requires_grad_()
             (d_qkv,) = torch.autograd.grad(xla_attention(x, mask, ctx.num_heads, ctx.causal), x, g)
-        return d_qkv, None, None, None
+        return d_qkv, None, None, None, None
 
 
 def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor, num_heads: int,
-                      causal: bool = False) -> torch.Tensor:
+                      causal: bool = False, width: Optional[int] = None) -> torch.Tensor:
     """K4: (B, S, 3D) fused QKV + (B, S) key mask → (B, S, D), differentiable;
-    the plan must be one-shot, as `_pallas_forward` asserts."""
+    the plan must be one-shot, as `_pallas_forward` asserts.  `width` is
+    the model width the routes are decided on (default D): under tensor
+    parallelism qkv holds this rank's heads, and the plan and the
+    backward's route are those of the whole layer, as JAX decides them on
+    its global shapes."""
     b, s, three_d = qkv.shape
-    plan = kernel_plan(s, three_d // 3, qkv.dtype)
+    width = three_d // 3 if width is None else width
+    plan = kernel_plan(s, width, qkv.dtype)
     if plan is None or plan[0] != "one_shot":
         raise ValueError(f"K4 needs a one-shot plan; seq {s} has {plan}")
     return _EncoderAttention.apply(qkv.contiguous(), mask.to(torch.int32).contiguous(),
-                                   num_heads, causal)
+                                   num_heads, causal, width)
 
 
-def _blocked_plan(q):
+def _blocked_plan(q, width: Optional[int] = None):
     s = q.shape[1]
-    plan = kernel_plan(s, q.shape[-1], q.dtype)
+    plan = kernel_plan(s, q.shape[-1] if width is None else width, q.dtype)
     if plan is None or plan[0] != "blocked":
         raise ValueError(f"K5 needs a blocked plan; seq {s} has {plan}")
     return plan
@@ -536,11 +543,12 @@ class _EncoderAttentionBlocked(torch.autograd.Function):
 
 
 def encoder_attention_blocked(q: torch.Tensor, kv: torch.Tensor, mask: torch.Tensor,
-                              num_heads: int) -> torch.Tensor:
+                              num_heads: int, width: Optional[int] = None) -> torch.Tensor:
     """K5: Q (B, S, D) and K|V (B, S, 2D) + (B, S) key mask → (B, S, D),
-    differentiable; the plan must be blocked, as `_pallas_forward_blocked`
+    differentiable; the plan at the route width (`width`, default D; see
+    `encoder_attention`) must be blocked, as `_pallas_forward_blocked`
     asserts."""
-    _blocked_plan(q)
+    _blocked_plan(q, width)
     return _EncoderAttentionBlocked.apply(q.contiguous(), kv.contiguous(),
                                           mask.to(torch.int32).contiguous(), num_heads)
 

@@ -1,4 +1,4 @@
-"""Data parallelism over a process-group mesh (cacophony_tpu/parallel)."""
+"""Data and tensor parallelism over a process-group mesh (cacophony_tpu/parallel)."""
 from cacophony_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_spec,
     make_mesh,

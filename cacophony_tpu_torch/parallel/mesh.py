@@ -11,9 +11,17 @@ Where the JAX package places parameters and batches and lets GSPMD insert
 the collectives, the port's programs call them: every replica starts from
 rank 0's parameters (`shard_params`), each rank keeps its block of the
 batch's rows (`shard_batch`), and the training step (train/train.py)
-gathers the contrastive embeddings and sums the gradients over dp.  Only
-dp is ported: `param_specs` gives the tp rules, but `shard_params` raises
-for tp > 1 (ROADMAP.md queue A item 7b, tensor parallelism).
+gathers the contrastive embeddings and sums the gradients over dp.
+
+Under tp > 1, `param_specs` (JAX's rules, leaf for leaf) decides which
+leaves are sharded, and `shard_params` keeps this rank's block of each:
+a column-parallel leaf its heads' q, k and v columns (`qkv`: heads
+[r·H/tp, (r+1)·H/tp) of each of the three; `kv`: of k and v) or a
+contiguous block of columns (MLP-in, the vocabulary head), a row-parallel
+leaf the matching block of rows (`o`, MLP-out).  The layout on a rank is
+not JAX's contiguous P(None, 'tp'): what equals JAX's is the gathered
+tree, `gather_params`, the exact inverse.  The sharded Denses carry their
+`TPShard` (parallel/tensor.py), which the model's functions read.
 
 Where JAX's `make_mesh` warns and leaves devices idle (dp·tp below the
 device count), the port raises: a rank outside the mesh would wait forever
@@ -23,14 +31,15 @@ in the first collective of the ranks inside it.
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-TP_ITEM = "ROADMAP.md queue A item 7b (tensor parallelism)"
+from cacophony_tpu_torch.parallel.tensor import TPShard, all_gather, group_size
+
 _BUCKET_BYTES = 1 << 28  # flat buffer of a coalesced collective
 
 
@@ -48,6 +57,8 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, device="cuda") -> DeviceMes
                                 store=dist.HashStore(), rank=0, world_size=1)
     world = dist.get_world_size()
     if dp is None:
+        if world % tp:
+            raise ValueError(f"tp={tp} does not divide the {world} ranks of the process group")
         dp = world // tp
     if dp * tp > world:
         raise ValueError(f"mesh {dp}×{tp} needs {dp * tp} ranks, have {world}")
@@ -129,20 +140,132 @@ def coalesced(tensors, fn) -> None:
                 size += t.numel() * t.element_size()
 
 
+def _tp_groups(name: str) -> int:
+    """How many column groups a leaf's sharded dim holds: 3 for a fused
+    QKV (q | k | v), 2 for a fused K|V, else 1."""
+    owner = name.rsplit(".", 1)[0].rsplit(".", 1)[-1]
+    return {"qkv": 3, "kv": 2}.get(owner, 1)
+
+
+def tp_layout(model: torch.nn.Module, mesh) -> Dict[str, Tuple[int, int]]:
+    """name → (sharded dim, column groups) of every leaf `param_specs`
+    shards over tp; raises ValueError where tp does not split a group
+    (the heads of a fused QKV) evenly."""
+    tp = _tp_size(mesh)
+    shapes = {name: p.shape for name, p in model.named_parameters()}
+    out = {}
+    for name, dim in param_specs(model, mesh).items():
+        if dim is None or tp == 1:
+            continue
+        groups = _tp_groups(name)
+        if shapes[name][dim] % (groups * tp):
+            raise ValueError(f"tp={tp} does not split {name} {tuple(shapes[name])} into "
+                             f"{groups} equal groups of whole blocks")
+        out[name] = (dim, groups)
+    return out
+
+
+def local_block(full: torch.Tensor, dim: int, groups: int, rank: int, size: int) -> torch.Tensor:
+    """Rank `rank`'s block of `full` along `dim`: of each of its `groups`
+    equal column groups, the rank's contiguous 1/size."""
+    x = full.movedim(dim, 0)
+    rest = x.shape[1:]
+    x = x.reshape(groups, size, x.shape[0] // (groups * size), *rest)[:, rank]
+    return x.reshape(-1, *rest).movedim(0, dim).contiguous()
+
+
+def join_blocks(parts: Sequence[torch.Tensor], dim: int, groups: int) -> torch.Tensor:
+    """The inverse of `local_block` over the ranks' blocks, in rank order."""
+    xs = [p.movedim(dim, 0) for p in parts]
+    rest = xs[0].shape[1:]
+    x = torch.stack([t.reshape(groups, -1, *rest) for t in xs], dim=1)
+    return x.reshape(-1, *rest).movedim(0, dim).contiguous()
+
+
+def shard_tensors(model: torch.nn.Module, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Whole tensors in `named_parameters()` order (parameters or optimizer
+    moments) → this rank's blocks, by the layout `shard_params` gave the
+    model; unchanged where the model is not sharded."""
+    layout, shard = getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None)
+    return [local_block(t, *layout[name], shard.rank, shard.size) if name in layout else t
+            for (name, _), t in zip(model.named_parameters(), tensors)]
+
+
+def gather_tensors(model: torch.nn.Module, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """This rank's blocks in `named_parameters()` order → the whole
+    tensors, gathered over tp (every rank of the tp group must call)."""
+    layout, shard = getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None)
+    return [join_blocks(all_gather(t, shard.group), *layout[name]) if name in layout else t
+            for (name, _), t in zip(model.named_parameters(), tensors)]
+
+
+def replicate_params(model: torch.nn.Module) -> torch.nn.Module:
+    """Every rank takes rank 0's parameters (the counterpart of JAX's
+    `device_put` of its one host tree).  In place; → model."""
+    if group_size(None) > 1:
+        coalesced([p.data for p in model.parameters()], lambda flat: dist.broadcast(flat, src=0))
+    return model
+
+
 @torch.no_grad()
 def shard_params(model: torch.nn.Module, mesh: DeviceMesh) -> torch.nn.Module:
-    """Place the parameters on the mesh: at tp = 1 every replica takes rank
-    0's values (the counterpart of JAX's `device_put` of its one host tree).
-    In place; → model."""
-    if mesh["tp"].size() > 1:
-        raise NotImplementedError(f"tp > 1 is not ported yet: {TP_ITEM}")
-    coalesced([p.data for p in model.parameters()], lambda flat: dist.broadcast(flat, src=0))
+    """Place the parameters on the mesh: every rank takes rank 0's values,
+    then under tp > 1 keeps its block of each leaf `param_specs` shards
+    (module docstring).  Each sharded Dense gets its `tp_shard`, the model
+    its `tp_layout` (name → (dim, column groups)) and `tp_shard`.  In place;
+    → model."""
+    replicate_params(model)
+    tp = mesh["tp"].size()
+    if tp == 1:
+        return model
+    if getattr(model, "tp_layout", None):
+        raise ValueError("the model is already sharded")
+    layout = tp_layout(model, mesh)
+    shard = TPShard(mesh.get_group("tp"), mesh.get_local_rank("tp"), tp)
+    named = dict(model.named_parameters())
+    for name, (dim, groups) in layout.items():
+        p = named[name]
+        p.data = local_block(p.data, dim, groups, shard.rank, tp)
+        if name.endswith(".w"):
+            owner = model.get_submodule(name.rsplit(".", 1)[0])
+            owner.tp_shard = shard._replace(column=dim == p.dim() - 1)
+    model.tp_layout, model.tp_shard = layout, shard
+    return model
+
+
+@torch.no_grad()
+def gather_params(model: torch.nn.Module, mesh: Optional[DeviceMesh] = None) -> torch.nn.Module:
+    """The exact inverse of `shard_params` at tp > 1: every leaf whole
+    again on every rank, the tp attributes removed (a no-op on a model
+    that is not sharded).  In place; → model."""
+    shard = getattr(model, "tp_shard", None)
+    if shard is None:
+        return model
+    if mesh is not None and mesh["tp"].size() != shard.size:
+        raise ValueError(f"the model is sharded over tp={shard.size}, the mesh has "
+                         f"tp={mesh['tp'].size()}")
+    params = list(model.parameters())
+    for p, t in zip(params, gather_tensors(model, [p.data for p in params])):
+        p.data = t
+    for m in model.modules():
+        m.__dict__.pop("tp_shard", None)
+    del model.tp_layout
     return model
 
 
 def batch_spec() -> tuple:
     """The batch layout: the leading axis split over 'dp' (JAX P('dp'))."""
     return ("dp",)
+
+
+def mesh_rows(n: int, mesh: DeviceMesh) -> slice:
+    """This rank's contiguous block of n rows over every rank of the mesh,
+    in rank order (serving folds tp into data parallelism)."""
+    size = mesh.size()
+    if n % size:
+        raise ValueError(f"leading axis {n} does not divide over the {size}-rank mesh")
+    r = dist.get_rank()
+    return slice(r * n // size, (r + 1) * n // size)
 
 
 def dp_rows(n: int, mesh: DeviceMesh) -> slice:
@@ -167,7 +290,9 @@ def shard_batch(batch, mesh: DeviceMesh):
 
 def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """The ranks' x concatenated on axis 0 in rank order (no gradient)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
+    if n == 1:
+        return x
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
     return out
@@ -185,6 +310,8 @@ class GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if group_size(ctx.group) == 1:
+            return g, None
         g = g.contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         r = dist.get_rank(ctx.group)

@@ -23,10 +23,13 @@ K3 on a CUDA device, their plain versions on the CPU, or the einsum layer.
 `decode`; a CUDA graph per step on the card).
 
 `mesh=` (a `parallel.make_mesh` mesh) serves data-parallel, as JAX's
-`_data_parallel` does: every rank holds rank 0's parameters
-(`shard_params`, so tp must be 1), runs the single-device program, kernels
-included, on its contiguous rows of each bucket, and the outputs are
-gathered in row order, so every rank returns the whole result.  `score`
+`_data_parallel` does: every rank holds rank 0's parameters whole
+(`replicate_params`; serving folds tp into data parallelism, as JAX's
+engine splits its batch over every mesh axis), runs the single-device
+program, kernels included, on its contiguous rows of each bucket — the
+batch split over all dp·tp ranks in rank order — and the outputs are
+gathered in row order over the whole group, so every rank returns the
+whole result.  `score`
 and `caption` run unsharded.  Every rank must make the same calls.
 """
 
@@ -50,7 +53,7 @@ from cacophony_tpu_torch.models.caco import (
     get_text_embedding,
 )
 from cacophony_tpu_torch.ops.encoder_attention import preferred_seq_len
-from cacophony_tpu_torch.parallel.mesh import dp_rows, gather_rows, shard_params
+from cacophony_tpu_torch.parallel.mesh import gather_rows, mesh_rows, replicate_params
 
 TEXT_BUCKETS = (16, 32, 64)
 DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
@@ -112,7 +115,7 @@ class CacoEngine:
                     f"batch_size {batch_size} must divide evenly over the "
                     f"{mesh.size()}-device mesh (each device runs the full model "
                     f"on its batch shard)")
-            shard_params(self.params, mesh)
+            replicate_params(self.params)
         self.peak_in_flight = 0  # most audio buckets in flight in the last embed_audio
 
     # ------------------------------------------------------------- helpers
@@ -147,12 +150,12 @@ class CacoEngine:
                 return
 
     def _rows(self, n: int) -> slice:
-        """This rank's contiguous block of n rows (all of them without a
-        mesh)."""
-        return slice(0, n) if self.mesh is None else dp_rows(n, self.mesh)
+        """This rank's contiguous block of n rows over the whole mesh (all
+        of them without a mesh)."""
+        return slice(0, n) if self.mesh is None else mesh_rows(n, self.mesh)
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.mesh is None else gather_rows(x, self.mesh.get_group("dp"))
+        return x if self.mesh is None else gather_rows(x)
 
     def _wav_to_patch_batch(self, bufs: torch.Tensor, lens: torch.Tensor):
         """Host buffers → device patch dict: K8 or the unfused chain."""

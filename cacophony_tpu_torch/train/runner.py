@@ -7,6 +7,7 @@ device or data-parallel over several (cacophony_tpu/train/runner.py:47-211).
     python -m cacophony_tpu_torch.train.runner --stage mae --data-dir DIR \
         --workdir WORK [--device cpu] [--dtype bfloat16]
     torchrun --nproc-per-node N -m cacophony_tpu_torch.train.runner ... --dp N
+    torchrun --nproc-per-node 2 -m cacophony_tpu_torch.train.runner ... --dp 1 --tp 2
 
 Data layout: DIR holds wavs (any depth) and `captions.csv` with columns
 (file_name, caption), several rows per file allowed, and optionally
@@ -33,14 +34,16 @@ count guards on unless `--tiny-model`).  `--init-text-from-hf DIR` then
 replaces the text tower's embeddings and blocks with a local HF RoBERTa
 directory's (checkpoints/hf.py; nothing is downloaded).
 
-`--dp N` (or a torchrun launch) joins the process group
-(`initialize_multihost`) and trains over a ('dp', 'tp') mesh: every rank
-starts from rank 0's parameters, loads the global batch and runs the
-device frontend on it with the step's generator, then keeps its rows
-(`shard_batch`); the step optimizes the global batch's loss.  Rank 0 alone
-writes the metrics and the checkpoints, which a one-device run resumes
-(and the other way round).  `--tp` > 1 raises: tensor parallelism is
-ROADMAP.md queue A item 7b.
+`--dp N` / `--tp T` (or a torchrun launch) joins the process group
+(`initialize_multihost`) and trains over a ('dp', 'tp') mesh, dp·tp the
+world size (`--dp` defaults to world // tp): every rank starts from rank
+0's parameters, keeps its tp block of the sharded leaves
+(`shard_params`), loads the global batch and runs the device frontend on
+it with the step's generator, then keeps its dp rows (`shard_batch`; the
+tp ranks of a dp group hold the same rows); the step optimizes the global
+batch's loss.  Rank 0 alone writes the metrics and the checkpoints, which
+hold whole leaves (gathered over tp), so a run of any (dp, tp) resumes one
+of any other, one device included.
 """
 
 from __future__ import annotations
@@ -79,7 +82,6 @@ from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples
 from cacophony_tpu_torch.models.audio import audiomae_init
 from cacophony_tpu_torch.models.caco import caco_init
 from cacophony_tpu_torch.parallel import make_mesh, shard_batch, shard_params
-from cacophony_tpu_torch.parallel.mesh import TP_ITEM
 from cacophony_tpu_torch.parallel.multihost import initialize_multihost
 from cacophony_tpu_torch.train.train import (
     TrainConfig,
@@ -129,7 +131,8 @@ def build_parser():
                    help="local HF RoBERTa directory to initialize the text tower from")
     p.add_argument("--dp", type=int, default=None,
                    help="data-parallel ranks (default: the launcher's world size)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallel (only 1 is ported)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron: heads and MLP blocks split)")
     return p
 
 
@@ -160,22 +163,27 @@ def _tiny_mae() -> configs.AudioMAEConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError(f"--tp {args.tp}: tensor parallelism is not ported yet: "
-                                  f"{TP_ITEM}")
     if args.init_text_from_hf and not os.path.isdir(args.init_text_from_hf):
         sys.exit(f"--init-text-from-hf {args.init_text_from_hf}: not a directory; the HF "
                  "RoBERTa files must be local (nothing is downloaded)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to train on the CPU")
-    mesh, owns_group = None, False
-    if args.dp is not None or "WORLD_SIZE" in os.environ:
-        owns_group = not dist.is_initialized()
+    if not (args.dp is not None or args.tp > 1 or "WORLD_SIZE" in os.environ):
+        return _train(args, device, None)
+    owns_group = not dist.is_initialized()
+    try:
         initialize_multihost(device=device)
         mesh = make_mesh(dp=args.dp, tp=args.tp, device=device.type)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
+        return _train(args, device, mesh)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, mesh):
     rank0 = mesh is None or dist.get_rank() == 0
     os.makedirs(args.workdir, exist_ok=True)
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.warmup_steps,
@@ -253,8 +261,6 @@ def main(argv=None):
     save_train_state(state, ck_dir, mesh=mesh)
     if rank0:
         print(f"done at step {state.step}", flush=True)
-    if owns_group:
-        dist.destroy_process_group()
     return state
 
 

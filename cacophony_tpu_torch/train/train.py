@@ -48,6 +48,21 @@ gradients on every rank and the replicas stay equal.  The logged `loss`,
 noise is drawn at the global batch's shape and sliced, so a dp step masks
 what a one-device step masks; dropout and drop-path draw per rank (as
 JAX's `rbg` keys do per shard).
+
+Under a mesh with tp > 1 the model is sharded by `parallel.shard_params`
+(Megatron: each rank runs its heads and its block of every MLP, the
+vocabulary head vocab-parallel where tp divides it) and the tp ranks of a
+dp group step on the same rows.  The gradients of the sharded leaves are
+this rank's blocks; those of the replicated leaves come out whole and
+equal on every tp rank (the collectives' backward sums what the ranks'
+blocks contribute).  The dp sum is unchanged; the global norm sums the
+sharded leaves' squares over tp and counts each replicated leaf once; AdamW
+updates the local blocks.  Dropout in the replicated region draws the same
+masks on every tp rank (the same generator, the same shapes); in the
+sharded region (attention probabilities, the audio MLP's hidden features)
+the mask is drawn at the global shape and sliced, so a tp step draws what
+a one-process step draws and the replicas cannot drift.  tp must divide
+every tower's heads (ValueError otherwise).
 """
 
 from __future__ import annotations
@@ -66,7 +81,8 @@ from cacophony_tpu_torch.configs import AudioMAEConfig, CacoConfig
 from cacophony_tpu_torch.models.audio import audiomae_apply
 from cacophony_tpu_torch.models.caco import get_audio_embedding, get_text_embedding
 from cacophony_tpu_torch.models.text import caption_decoder_apply
-from cacophony_tpu_torch.parallel.mesh import TP_ITEM, coalesced, dp_rows
+from cacophony_tpu_torch.parallel.mesh import coalesced, dp_rows
+from cacophony_tpu_torch.parallel.tensor import all_reduce, group_size, tp_shard
 from cacophony_tpu_torch.train.losses import (
     caption_cross_entropy,
     clip_contrastive_loss,
@@ -177,25 +193,38 @@ def init_train_state(params: torch.nn.Module, tc: TrainConfig) -> TrainState:
     return TrainState(params, make_optimizer(tc).init(params), 0)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ ‖t‖²) over all tensors (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt(Σ ‖t‖²) over all tensors (optax.global_norm).  Under tp,
+    `sharded` marks the tensors that are this rank's blocks of a leaf:
+    their squares are summed over the tp `group`, and each replicated
+    tensor is counted once."""
+    if not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+    def squares(flag):
+        return torch.stack(torch._foreach_norm(
+            [t for t, s in zip(tensors, sharded) if s == flag])).square().sum()
+
+    return torch.sqrt(all_reduce(squares(True), group) + squares(False))
 
 
 def _dp_group(mesh):
     """The mesh's dp process group, or None without a mesh."""
-    if mesh is None:
-        return None
-    if mesh["tp"].size() > 1:
-        raise NotImplementedError(f"training with tp > 1 is not ported yet: {TP_ITEM}")
-    return mesh.get_group("dp")
+    return None if mesh is None else mesh.get_group("dp")
+
+
+def check_tp_heads(heads: Dict[str, int], mesh) -> None:
+    """ValueError where the mesh's tp does not divide a tower's heads."""
+    tp = 1 if mesh is None else mesh["tp"].size()
+    for name, h in heads.items():
+        if h % tp:
+            raise ValueError(f"tp={tp} does not divide the {h} heads of {name}")
 
 
 def _global(x: torch.Tensor, group) -> torch.Tensor:
     """A rank's share summed over the group (no gradient)."""
-    x = x.detach().clone()
-    dist.all_reduce(x, group=group)
-    return x
+    return all_reduce(x.detach().clone(), group)
 
 
 def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
@@ -204,6 +233,9 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
     Without a mesh the objective is the loss; under one it is this rank's
     objective, and metrics hold the global values."""
     group = _dp_group(mesh)
+    check_tp_heads({"the audio tower": cfg.audio.num_heads, "the text tower": cfg.text.num_heads,
+                    "the decoder": cfg.decoder.num_heads,
+                    "the audio pooler": cfg.num_attention_pool_heads}, mesh)
 
     def audio(model, batch, generator):
         arrays = (batch["audio_patches"], batch["audio_time_inds"], batch["audio_freq_inds"],
@@ -241,11 +273,12 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
         logits = caption_decoder_apply(model.decoder, cfg.decoder, t_hidden[:, :-1],
                                        tmask[:, :-1], a_hidden, batch["audio_mask"], train=True,
                                        generator=generator, dtype=cfg.dtype)
-        l_cap = caption_cross_entropy(logits.float(), ids[:, 1:], tmask[:, 1:], group)
+        l_cap = caption_cross_entropy(logits.float(), ids[:, 1:], tmask[:, 1:], group,
+                                      tp=tp_shard(model.decoder.vocab_proj))
         if group is None:
             loss = l_con + tc.caption_loss_weight * l_cap
             return loss, {"loss": loss, "contrastive": l_con, "caption": l_cap}
-        objective = l_con / dist.get_world_size(group) + tc.caption_loss_weight * l_cap
+        objective = l_con / group_size(group) + tc.caption_loss_weight * l_cap
         cap = _global(l_cap, group)
         return objective, {"loss": l_con.detach() + tc.caption_loss_weight * cap,
                            "contrastive": l_con, "caption": cap}
@@ -255,8 +288,8 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
 
 def _make_step(loss_fn, tc: TrainConfig, mesh=None):
     """→ step(state, batch, generator) → (state, metrics): loss_fn's
-    gradients (summed over dp under a mesh), their global norm, one AdamW
-    update in place."""
+    gradients (summed over dp under a mesh), their global norm (over tp's
+    blocks too), one AdamW update in place."""
     group = _dp_group(mesh)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -273,9 +306,11 @@ def _make_step(loss_fn, tc: TrainConfig, mesh=None):
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in model.parameters()]
-        if group is not None:
+        if group is not None and group_size(group) > 1:
             coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
-        norm = global_norm(grads)
+        layout, shard = getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None)
+        norm = global_norm(grads, [name in layout for name, _ in model.named_parameters()],
+                           shard.group if shard is not None else None)
         opt_state = opt.update(model, grads, state.opt_state, norm)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = norm
@@ -348,6 +383,8 @@ def make_mae_loss(cfg: AudioMAEConfig, tc: TrainConfig, mesh=None):
     keeps JAX's type promotion: a bf16 reconstruction minus the fp32 target
     is fp32."""
     group = _dp_group(mesh)
+    check_tp_heads({"the encoder": cfg.encoder.num_heads, "the decoder": cfg.decoder.num_heads},
+                   mesh)
 
     def loss_fn(model, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         # without a mesh, mae_noise keeps its two-argument call

@@ -215,6 +215,24 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    (c)'s clips/s without the mesh ÷ the card's bf16 peak) and `train_mfu`
    (16 × `caco_train_step_matmul_flops(caco_base, 500, 100)` ÷ phase 10's
    median step ÷ the peak), with the peak's key and value.
+19. tensor parallelism on the one card: two ranks spawned with
+   torch.multiprocessing share it over a gloo group on CUDA tensors at
+   (dp, tp) = (1, 2) (NCCL takes one rank a device), the kernels built by
+   this process first; which collectives gloo takes on CUDA tensors (fp32,
+   bf16) is probed and printed; K4, K7 and K5 at a rank's shapes (4 of the
+   8 heads, Dh 96; K5's plan that of the full 768 width) against their
+   plain versions; the stage-2 step at caco_base (B=16, 500 patches, 100
+   tokens, 3 steps) in bf16 and fp32, without and with the configs'
+   dropout, held to the one-process step that rank 0 runs alone from the
+   same parameters and generators (fp32: losses and grad_norm 1e-5
+   relative, parameters 1e-5 relative L2; bf16: losses 1e-2, grad_norm
+   2e-2, every parameter within 4·lr·1.05), every replicated leaf
+   bit-identical on both ranks after the steps, K4 and K7 launched 12
+   times a bf16 step and K4 12 / K7 0 an fp32 one on each rank; the 30-s
+   bf16 step (B=4, K5 12 a step); the fp32 stage-1 step at audiomae_base
+   (mask 0.8: K4 24 and K7 12 a step); a train state written at tp 2
+   (whole leaves) resumed by one process, whose next step equals tp's;
+   step times and each rank's peak device memory beside one process's.
 Every main path is driven with the launch counts set to 0 just before it
 and read just after.  The line before the last is a JSON object with one
 entry per TPU kernel (K1, K2, K3, K3′, K4, K5, K6, K7, K8, K8′; `mae_launches` counts
@@ -223,7 +241,8 @@ phase 15's: K1 a bf16 reconstruction, K2 an fp32 one, K4 and K7 4 bf16 steps;
 with the fused frontend; `decode_launches` and `prefill_launches` phase 16b's
 256-stream decode call and 16c's continuous run; `eval_launches` and
 `hear_launches` phase 17's eval CLI runs and HEAR runner runs;
-`parallel_launches` phase 18's runner run, dp step and dp engine); the last line is
+`parallel_launches` phase 18's runner run, dp step and dp engine;
+`tp_launches` rank 0's in phase 19's tp steps); the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and never imports JAX.
@@ -282,8 +301,8 @@ from cacophony_tpu_torch.models.audio import (
 from cacophony_tpu_torch.models.caco import caco_init, get_audio_embedding
 from cacophony_tpu_torch.models.layers import dense, layer_norm
 from cacophony_tpu_torch.native import wavio
-from cacophony_tpu_torch.parallel import make_mesh
-from cacophony_tpu_torch.parallel.mesh import coalesced
+from cacophony_tpu_torch.parallel import make_mesh, shard_params
+from cacophony_tpu_torch.parallel.mesh import coalesced, gather_params
 from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
@@ -3422,6 +3441,343 @@ def parallel_phase(cfg, tok, wavs, a_emb, train_step_ms, label):
                        "resample": resample, "mfu": mfu, "wall_s": wall}
 
 
+# Phase 19: tensor parallelism on the one card.  NCCL takes one rank a
+# device, so two ranks share the card over a gloo group on CUDA tensors at
+# (dp, tp) = (1, 2); rank 0 also runs the one-process step, alone, from the
+# same initial parameters and generators.  bf16 tolerances against the
+# one-process step: the losses 1e-2 and grad_norm 2e-2 relative (the bounds
+# tests/test_torch_train_step.py holds bf16 to: a row-parallel layer rounds
+# each rank's partial product to bf16 before the bf16 sum, where one process
+# rounds once, a few bf16 steps of 2^-8 a layer), and no parameter further
+# than two Adam steps of opposite signs, 4·lr·1.05 (an Adam step moves an
+# element by about lr whatever its gradient; bf16's K7 sums dQ with float
+# atomics, so not even the one-process step repeats itself bit for bit).
+# fp32: losses and grad_norm 1e-5 relative, parameters 1e-5 relative in L2.
+TP, TP_STEPS, TP_LR = 2, 3, 1e-4
+TP_TOL = {torch.float32: {"loss": 1e-5, "grad_norm": 1e-5, "params_rel_l2": 1e-5},
+          torch.bfloat16: {"loss": 1e-2, "grad_norm": 2e-2, "params_max": 4 * TP_LR * 1.05}}
+TP_TIMEOUT_S = 600
+
+
+def collectives_probe(rank: int) -> dict:
+    """Which collectives this process group takes on CUDA tensors (fp32 and
+    bf16), each checked for its result: → {name: "ok" or the error}."""
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.full((6,), rank + 1.0, device=DEVICE, dtype=dt)
+        cases = {
+            "all_reduce_sum": (lambda: dist.all_reduce(y := x.clone()) or y, 3.0),
+            "all_reduce_max": (lambda: dist.all_reduce(y := x.clone(), op=dist.ReduceOp.MAX) or y, 2.0),
+            "broadcast": (lambda: dist.broadcast(y := x.clone(), src=1) or y, 2.0),
+            "all_gather": (lambda: (dist.all_gather(ys := [torch.empty_like(x) for _ in range(TP)], x)
+                                    or torch.cat(ys)), None),
+            "all_gather_into_tensor": (lambda: dist.all_gather_into_tensor(
+                y := x.new_empty(TP * 6), x) or y, None),
+            "reduce_scatter_tensor": (lambda: dist.reduce_scatter_tensor(
+                y := x.new_empty(6), x.repeat(TP)) or y, 3.0),
+        }
+        for name, (fn, want) in cases.items():
+            try:
+                got = fn().float().cpu()
+                ref = (torch.full_like(got, want) if want is not None
+                       else torch.cat([torch.full((6,), r + 1.0) for r in range(TP)]))
+                out[f"{name} {_dt_name(dt)}"] = "ok" if torch.equal(got, ref) else f"wrong {got.tolist()}"
+            except Exception as e:  # noqa: BLE001 — the probe reports what the backend refuses
+                out[f"{name} {_dt_name(dt)}"] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return out
+
+
+def replicated_equal(model) -> bool:
+    """Every leaf tp does not shard is bit-identical on both ranks (rank
+    0's values broadcast into copies on every rank and compared there)."""
+    layout = model.tp_layout
+    mine = [p.detach() for n, p in model.named_parameters() if n not in layout]
+    theirs = [t.clone() for t in mine]
+    coalesced(theirs, lambda flat: dist.broadcast(flat, src=0))
+    ok = torch.tensor([float(all(torch.equal(a, b) for a, b in zip(mine, theirs)))], device=DEVICE)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def tp_steps(step, state, batch, n: int, first: int = 0):
+    """n steps, step i drawing from a generator seeded SEED + i, each timed
+    on the host clock between synchronisations → (state, metrics, ms)."""
+    metrics, ms = [], []
+    for i in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, torch.Generator(device=DEVICE).manual_seed(SEED + i))
+        metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, metrics, ms
+
+
+def params_diff(got: dict, ref: dict) -> dict:
+    num = sum(float((got[k].double() - ref[k].double()).square().sum()) for k in ref)
+    den = sum(float(ref[k].double().square().sum()) for k in ref)
+    return {"rel_l2": (num / den) ** 0.5, "max_abs": max_diff(got, ref)}
+
+
+def tp_run(make_step, cfg, model, init, batch, mesh, n, rank, reference, first=0):
+    """n steps of `make_step(cfg, tc, mesh)` from `init` at tp 2 (both
+    ranks: launches, memory, replicated leaves after the steps), then on
+    rank 0 the same steps without a mesh on `reference` → a summary."""
+    tc = train.TrainConfig(learning_rate=TP_LR, warmup_steps=1, total_steps=100)
+    model.load_state_dict(init)
+    shard_params(model, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, metrics, ms = tp_steps(make_step(cfg, tc, mesh), train.init_train_state(model, tc),
+                                  batch, n, first)
+    out = {"launches": launches(), "metrics": metrics, "ms": ms,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "param_gib": sum(p.numel() * 4 for p in model.parameters()) / 2 ** 30,
+           "replicated_equal": replicated_equal(model)}
+    del state
+    gather_params(model, mesh)
+    if rank == 0:
+        reference.load_state_dict(init)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, ref_metrics, ref_ms = tp_steps(make_step(cfg, tc), train.init_train_state(
+            reference, tc), batch, n, first)
+        del state
+        out.update(ref_metrics=ref_metrics, ref_ms=ref_ms,
+                   ref_peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                   params=params_diff(model.state_dict(), reference.state_dict()))
+    dist.barrier()
+    return out
+
+
+def tp_rank(rank: int, tmp: str, backend: str):
+    """One rank of phase 19 (a process of its own, spawned): every run's
+    summary to tmp/tp_rank{rank}.pt.  gloo: both ranks on card 0; nccl:
+    rank r on card r."""
+    import datetime
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern.load_library()  # built by the parent before the spawn
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=TP, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"collectives": collectives_probe(rank)}
+    try:
+        mesh = make_mesh(dp=1, tp=TP, device=DEVICE)
+        out["mesh"] = (tuple(mesh.shape), dist.get_backend())
+        data = torch.load(os.path.join(tmp, "batches.pt"))
+        on = lambda b: {k: v.to(DEVICE) for k, v in b.items()}  # noqa: E731
+        base = configs.caco_base()
+        model = caco_init(base, torch.Generator().manual_seed(SEED)).to(DEVICE)
+        init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        reference = caco_init(base, torch.Generator()).to(DEVICE) if rank == 0 else None
+        batch = on(data["caco"])
+        for name, dtype, dropout in (("bf16", torch.bfloat16, False), ("fp32", torch.float32, False),
+                                     ("bf16_dropout", torch.bfloat16, True),
+                                     ("fp32_dropout", torch.float32, True)):
+            cfg = dataclasses.replace(base if dropout else no_text_dropout(base), dtype=dtype)
+            out[name] = tp_run(train.make_caco_train_step, cfg, model, init, batch, mesh, TP_STEPS,
+                               rank, reference)
+        out["resume"] = tp_resume(no_text_dropout(base), model, init, batch, mesh, rank, reference,
+                                  tmp)
+        cfg30 = dataclasses.replace(base, dtype=torch.bfloat16)
+        out["bf16_30s"] = tp_run(train.make_caco_train_step, cfg30, model, init, on(data["caco30"]),
+                                 mesh, 2, rank, reference)
+        del model, reference, init
+        mae_cfg = configs.audiomae_base()
+        mae = audiomae_init(mae_cfg.encoder, mae_cfg.decoder,
+                            torch.Generator().manual_seed(SEED)).to(DEVICE)
+        mae_init = {k: v.to("cpu", copy=True) for k, v in mae.state_dict().items()}
+        mae_ref = (audiomae_init(mae_cfg.encoder, mae_cfg.decoder, torch.Generator()).to(DEVICE)
+                   if rank == 0 else None)
+        out["mae_fp32"] = tp_run(train.make_mae_train_step, mae_cfg, mae, mae_init, on(data["mae"]),
+                                 mesh, TP_STEPS, rank, mae_ref)
+    finally:
+        torch.save(out, os.path.join(tmp, f"tp_rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def tp_resume(cfg, model, init, batch, mesh, rank, reference, tmp):
+    """19e: TP_STEPS fp32 steps at tp 2, the train state saved (whole
+    leaves, rank 0 writes), one more step; one process resumes the file and
+    takes the same step → its loss and parameters against tp's."""
+    tc = train.TrainConfig(learning_rate=TP_LR, warmup_steps=1, total_steps=100)
+    model.load_state_dict(init)
+    shard_params(model, mesh)
+    step = train.make_caco_train_step(cfg, tc, mesh)
+    state, _, _ = tp_steps(step, train.init_train_state(model, tc), batch, TP_STEPS)
+    ck = os.path.join(tmp, "checkpoints")
+    t0 = time.perf_counter()
+    path = ckpt_io.save_train_state(state, ck, mesh=mesh)
+    write_s = time.perf_counter() - t0
+    state, after, _ = tp_steps(step, state, batch, 1, TP_STEPS)
+    del state
+    gather_params(model, mesh)
+    out = {"tp_loss": after[0]["loss"], "write_s": write_s,
+           "file_bytes": os.path.getsize(os.path.join(path, ckpt_io.TRAIN_STATE_FILE))}
+    if rank == 0:
+        like = train.init_train_state(reference, tc)
+        resumed = ckpt_io.load_train_state(ck, like)
+        names = [n for n, _ in reference.named_parameters()]
+        saved = torch.load(os.path.join(path, ckpt_io.TRAIN_STATE_FILE), map_location="cpu")
+        whole = all(tuple(saved["params"][n].shape) == tuple(p.shape)
+                    for n, p in reference.named_parameters())
+        state, one, _ = tp_steps(train.make_caco_train_step(cfg, tc), resumed, batch, 1, TP_STEPS)
+        del state, saved
+        out.update(one_loss=one[0]["loss"], whole_leaves=whole and resumed.step == TP_STEPS,
+                   names=len(names), params=params_diff(model.state_dict(), reference.state_dict()))
+    dist.barrier()
+    return out
+
+
+@torch.inference_mode()
+def tp_kernel_checks():
+    """K4, K7 and K5 at the shapes a rank gives them under tp 2: 4 of the 8
+    heads of Dh 96, against their plain versions."""
+    gen = torch.Generator().manual_seed(SEED + 19)
+    heads, width = H // TP, D // TP
+    errs = {}
+
+    def inputs(b, s, w, dt, lengths):
+        x = (1.5 * torch.randn(b, s, w, generator=gen)).to(DEVICE, dt)
+        return x, (torch.arange(s)[None, :] < torch.tensor(lengths)[:, None]).to(DEVICE, torch.int32)
+
+    lengths = ([500, 400, 300, 500, 100, 250, 0, 17] * 2)[:TRAIN_BATCH]
+    for dt in (torch.bfloat16, torch.float32):
+        qkv, mask = inputs(TRAIN_BATCH, 500, 3 * width, dt, lengths)
+        errs["K4"] = max(errs.get("K4", 0.0), compare(
+            f"K4 {_dt_name(dt)} B={TRAIN_BATCH} S=500 H={heads} (tp 2)",
+            kern.attention_k4(qkv, mask, heads),
+            kern.attention_plain(qkv, mask, heads), *TOL[dt]["kernel"]))
+    qkv, mask = inputs(TRAIN_BATCH, 500, 3 * width, torch.bfloat16, lengths)
+    g = torch.randn(TRAIN_BATCH, 500, width, generator=gen).to(DEVICE, torch.bfloat16)
+    errs["K7"] = compare(f"K7 bf16 B={TRAIN_BATCH} S=500 H={heads} (tp 2)",
+                         kern.attention_bwd(qkv, mask, g, heads),
+                         kern.attention_bwd_plain(qkv, mask, g, heads), *TOL[torch.bfloat16]["k7"])
+    lengths = [1500, 1200, 37, 0][:TRAIN_BATCH_30]
+    q, mask = inputs(TRAIN_BATCH_30, 1500, width, torch.bfloat16, lengths)
+    kv, _ = inputs(TRAIN_BATCH_30, 1500, 2 * width, torch.bfloat16, lengths)
+    check(ea.kernel_plan(1500, D, torch.bfloat16) == ("blocked", 1536, 256), "30-s plan at 768")
+    errs["K5"] = compare(f"K5 bf16 B={TRAIN_BATCH_30} S=1500 H={heads} (tp 2, plan of 768)",
+                         ea.encoder_attention_blocked(q, kv, mask, heads, width=D),
+                         ea.encoder_attention_blocked_plain(q, kv, mask, heads),
+                         *TOL[torch.bfloat16]["kernel"])
+    return errs
+
+
+def tp_check_run(name, got, dtype, expect):
+    """Phase 19's checks on one run's ranks (`got`: rank 0's, rank 1's)."""
+    r0, r1 = got
+    tol = TP_TOL[dtype]
+    for r, res in enumerate(got):
+        for k, want in expect.items():
+            check(res["launches"][k] == want, f"phase 19 {name} rank {r}: {k} launched "
+                                              f"{res['launches'][k]} times, expected {want}")
+        check(all(np.isfinite([m["loss"] for m in res["metrics"]])), f"{name}: non-finite loss")
+    check(r0["metrics"] == r1["metrics"], f"phase 19 {name}: the ranks' metrics differ")
+    check(r0["replicated_equal"] and r1["replicated_equal"],
+          f"phase 19 {name}: a replicated leaf differs between the ranks")
+    rel = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(r0["metrics"], r0["ref_metrics"]))
+           for k in ("loss", "grad_norm")}
+    for k, v in rel.items():
+        check(v <= tol[k], f"phase 19 {name}: {k} {v:.2e} relative from the one-process step "
+                           f"(> {tol[k]})")
+    p = r0["params"]
+    if "params_rel_l2" in tol:
+        check(p["rel_l2"] <= tol["params_rel_l2"], f"phase 19 {name}: parameters {p['rel_l2']:.2e} "
+                                                   f"relative in L2 from the one-process step")
+    else:
+        check(p["max_abs"] <= tol["params_max"], f"phase 19 {name}: a parameter {p['max_abs']:.2e} "
+                                                 f"from the one-process step")
+    print(f"  {name}: losses tp {[round(m['loss'], 6) for m in r0['metrics']]} / one process "
+          f"{[round(m['loss'], 6) for m in r0['ref_metrics']]}; max rel Δ loss {rel['loss']:.2e}, "
+          f"grad_norm {rel['grad_norm']:.2e}; parameters rel L2 {p['rel_l2']:.2e}, max |Δ| "
+          f"{p['max_abs']:.2e}; replicated leaves bit-identical on both ranks; launches a rank "
+          f"{ {k: r0['launches'][k] for k in ('k4', 'k5', 'k7')} }")
+    return {"rel": rel, "params": p, "launches": r0["launches"]}
+
+
+def tp_phase(cfg, label, backend: str = "gloo"):
+    """Phase 19: the stage-2 step (bf16 and fp32, without and with the
+    configs' dropout, 3 steps), the 30-s bf16 step and the fp32 stage-1 step
+    at full width on two ranks at (dp, tp) = (1, 2), each held to the
+    one-process step; a train state written at tp 2 resumed by one process;
+    step times and each rank's memory beside one process's.  gloo: two
+    ranks share the one card; nccl (a machine with two cards or more): a
+    card a rank."""
+    t0 = time.perf_counter()
+    n, n_mae = cfg.audio.num_layers, configs.audiomae_base().encoder.num_layers
+    where = "on the card over gloo" if backend == "gloo" else "on two cards over NCCL"
+    print(f"phase 19: tensor parallelism, two ranks {where}, (dp, tp) = (1, {TP}), "
+          f"caco_base / audiomae_base, B={TRAIN_BATCH}, 500 patches, {TEXT_LEN} tokens, "
+          f"{TP_STEPS} steps")
+    errs = tp_kernel_checks()
+    rs = np.random.RandomState(SEED + 19)
+    cpu = lambda b: {k: v.cpu() for k, v in b.items()}  # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="caco_smoke_tp_")
+    try:
+        torch.save({"caco": cpu(train_batch(cfg, rs, TRAIN_BATCH, 10, 500)),
+                    "caco30": cpu(train_batch(cfg, rs, TRAIN_BATCH_30, 30, 1500)),
+                    "mae": cpu(audio_batch(rs, MAE_TRAIN_BATCH, 10, 500))},
+                   os.path.join(tmp, "batches.pt"))
+        torch.cuda.empty_cache()
+        try:
+            torch.multiprocessing.spawn(tp_rank, args=(tmp, backend), nprocs=TP, join=True)
+        except Exception as e:  # noqa: BLE001 — a rank's failure fails the phase
+            raise SmokeFailure(f"phase 19: a rank failed: {e}") from e
+        got = [torch.load(os.path.join(tmp, f"tp_rank{r}.pt"), weights_only=False)
+               for r in range(TP)]
+    finally:
+        shutil.rmtree(tmp)
+    probe = got[0]["collectives"]
+    print(f"  {backend} on CUDA tensors (torch {torch.__version__}): "
+          + "; ".join(f"{k} {v}" for k, v in probe.items()))
+    for need in ("all_reduce_sum float32", "all_reduce_sum bfloat16", "all_gather float32",
+                 "all_gather bfloat16", "broadcast float32"):  # what the tp path calls
+        check(probe[need] == "ok", f"phase 19: {backend} refuses {need} on CUDA tensors: "
+                                   f"{probe[need]}")
+    check(got[0]["mesh"] == ((1, TP), backend), f"phase 19 mesh {got[0]['mesh']}")
+    none = {"k5": 0, **NO_SERVING_KERNELS}
+    out = {"backend": backend, "collectives_cuda": probe}
+    for name, dtype, k7 in (("bf16", torch.bfloat16, n), ("fp32", torch.float32, 0),
+                            ("bf16_dropout", torch.bfloat16, n), ("fp32_dropout", torch.float32, 0)):
+        out[name] = tp_check_run(name, [g[name] for g in got], dtype,
+                                 {"k4": n * TP_STEPS, "k7": k7 * TP_STEPS, **none})
+    out["bf16_30s"] = tp_check_run("bf16 30 s", [g["bf16_30s"] for g in got], torch.bfloat16,
+                                   {"k5": n * 2, "k4": 0, "k7": 0, **NO_SERVING_KERNELS})
+    layers = 2 * n_mae
+    out["mae_fp32"] = tp_check_run("stage 1 fp32", [g["mae_fp32"] for g in got], torch.float32,
+                                   {"k4": layers * TP_STEPS, "k7": n_mae * TP_STEPS, **none})
+    res = got[0]["resume"]
+    rel = abs(res["tp_loss"] - res["one_loss"]) / abs(res["one_loss"])
+    print(f"  19e: a train state of whole leaves written at tp 2 ({res['file_bytes']} bytes in "
+          f"{res['write_s']:.2f} s), resumed in one process: the next step's loss {res['one_loss']:.7f} "
+          f"vs tp's {res['tp_loss']:.7f} (rel {rel:.2e}), parameters rel L2 "
+          f"{res['params']['rel_l2']:.2e}")
+    check(res["whole_leaves"], "phase 19e: the tp file does not hold whole leaves")
+    check(rel <= TP_TOL[torch.float32]["loss"] and res["params"]["rel_l2"] <= 1e-5,
+          "phase 19e: the resumed one-process step differs from the tp step")
+    out["resume"] = dict(res, loss_rel=rel)
+    for name in ("bf16", "fp32", "bf16_30s", "mae_fp32"):
+        r0, r1 = got[0][name], got[1][name]
+        med = lambda ms: float(np.median(ms[1:]))  # noqa: E731  (the first step warms up)
+        out[name].update(tp_ms=[r0["ms"], r1["ms"]], one_ms=r0["ref_ms"],
+                         tp_peak_gib=[r0["peak_gib"], r1["peak_gib"]], one_peak_gib=r0["ref_peak_gib"],
+                         param_gib_rank=r0["param_gib"])
+        print(f"  {name}: step {med(r0['ms']):.1f} ms at tp 2 (rank 0; steps {['%.1f' % v for v in r0['ms']]}) "
+              f"vs {med(r0['ref_ms']):.1f} ms in one process; peak device memory of the run "
+              f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank vs {r0['ref_peak_gib']:.2f} "
+              f"GiB; fp32 parameters {r0['param_gib']:.3f} GiB a rank ({label})")
+    wall = time.perf_counter() - t0
+    print(f"  phase 19 took {wall:.1f} s ({label})")
+    launches_ = {name: got[0][name]["launches"] for name in ("bf16", "fp32", "bf16_30s", "mae_fp32")}
+    return errs, launches_, dict(out, wall_s=wall)
+
+
 def clips_per_s(engine, wavs, runs=2):
     engine.embed_audio(wavs[:BATCH])  # warm
     rates = []
@@ -3635,6 +3991,9 @@ def run() -> dict:
           f"({label})")
     eval_launches, hear_launches, eval_hear = eval_hear_phase(label)
     par_launches, par = parallel_phase(cfg, tok, wavs, a_emb, train_bf16["median_step_ms"], label)
+    tp_errs, tp_launches, tp = tp_phase(cfg, label)
+    for key, err in tp_errs.items():  # K4, K5 and K7 at 4 heads
+        errs[key] = max(errs[key], err)
     err_key = {"K1": "k1_layer", "K2": "K2", "K3": "K3", "K3′": "K3′", "K4": "K4", "K5": "K5",
                "K6": "K6", "K7": "K7", "K8": "K8", "K8′": "K8′"}
     time_key = {"K1": "k1_layer", "K2": "k2_block", "K3": "k3_block", "K3′": "k3_layer", "K4": "k4",
@@ -3666,7 +4025,9 @@ def run() -> dict:
                 "eval_launches": sum(got[key] for got in eval_launches.values()),
                 "hear_launches": sum(got[key] for got in hear_launches.values()),
                 # phase 18: the runner from HF files, the dp step and the dp engine
-                "parallel_launches": sum(got[key] for got in par_launches.values())}
+                "parallel_launches": sum(got[key] for got in par_launches.values()),
+                # phase 19: rank 0's launches in the tp steps (bf16, fp32, 30 s, stage 1)
+                "tp_launches": sum(got[key] for got in tp_launches.values())}
                for name, (src, replaces, key) in TPU_KERNELS.items()]
     return {"kernels": kernels,
             "k1_parts": {k: {"source": src, "launches": path["K1"][k], "max_abs_err": errs[k],
@@ -3710,6 +4071,8 @@ def run() -> dict:
             "parallel": dict(par, launches={
                 run: {k: got[k] for k in ("k1_layer", "k4", "k7")}
                 for run, got in par_launches.items()}),
+            "tensor_parallel": dict(tp, launches={
+                run: {k: got[k] for k in ("k4", "k5", "k7")} for run, got in tp_launches.items()}),
             "gpu": label}
 
 

@@ -11,7 +11,8 @@ the SIMT GEMM in fp32 and bf16 at ragged M, N, K (N, K not multiples of 8)
 with every epilogue, the bf16 attention and K7 at head dims other than 64
 and 96, and the caco_tiny bf16 engine (K1 at Dh 16) against the CPU engine;
 the wgmma K7 (bf16, Dh 64 and 96, S = 1 … 579, causal and not, logits
-above the clamp), heads past 128 columns (Dh 160 … 384: the attention
+above the clamp, and its flush of p below 2^-126 to 0 where the CPU
+keeps subnormals), heads past 128 columns (Dh 160 … 384: the attention
 link, K4, K5, K7 and a K1 chain at Dh 256), K5 at the clip length
 against the padded call, bit for bit, and K8 at 1 … 3000 frames with a
 silent clip and a DC plus Nyquist clip, at the default frontend and at
@@ -320,6 +321,30 @@ def test_k7_matches_plain(cuda, dtype, s, heads, causal):
     assert kern.LAUNCHES["k7"] == 1
     _check(got, kern.attention_bwd_plain(qkv, mask, g, heads, causal), TOL_K7[dtype])
     assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_k7_flushes_p_below_the_normal_range(cuda):
+    """The bf16 K7 at Dh 96 takes its exponentials with ex2.approx.ftz: where
+    every logit of a query row lies below ≈ -87, p = e^logit is below 2^-126
+    and flushes to 0, so that row's gradients are exactly 0 on the card,
+    while the plain version on the CPU keeps the subnormal p (its row sum
+    floored at 1e-37) and gives small nonzero gradients.  Clip 0's q and k
+    share a direction with opposite signs (every logit ≈ -100); clip 1 is
+    ordinary and matches the plain version within K7's bound."""
+    s, heads, hd = 64, 8, 96
+    qkv, mask, gen = _qkv(2, s, heads * hd, [s, s], torch.bfloat16, 31)
+    c = (100.0 / kern.q_scale(hd, torch.bfloat16)) ** 0.5 / hd ** 0.5  # |q|·|k|·scale = 100
+    qkv[0, :, :heads * hd] = c
+    qkv[0, :, heads * hd:2 * heads * hd] = -c
+    g = torch.randn(2, s, heads * hd, generator=gen).to(torch.bfloat16)
+    q, k = (kern.split_heads(t, heads).float() for t in qkv[:1, :, :2 * heads * hd].chunk(2, -1))
+    logits = (q * kern.q_scale(hd, torch.bfloat16)).bfloat16().float() @ k.transpose(-1, -2)
+    assert float(logits.max()) < -87.0
+    got = kern.attention_bwd(qkv.to(cuda), mask.to(cuda), g.to(cuda), heads).cpu()
+    want = kern.attention_bwd_plain(qkv, mask, g, heads)
+    assert (got[0] == 0).all() and float(want[0].float().abs().max()) > 0.0
+    _check(got[1], want[1], TOL_K7["bfloat16"])
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ here in the parent and the ranks' results come back through files.
 - `make_mesh`: the one-rank group in one process, and its errors (more
   ranks than the world; fewer, where JAX would leave devices idle);
   `initialize_multihost` with and without a rendezvous; `shard_batch`'s
-  row blocks; `shard_params` and the step at tp 2 raise;
+  row blocks; `shard_params` at tp 2 keeps a rank's block, and a step
+  whose heads tp does not divide raises (tests/test_torch_parallel_tp.py
+  holds tp against one process and JAX);
 - the caco_tiny stage-2 step in fp32 at dropout 0 for dp = 2 and 4 over the
   same global batch of 8, two steps (the rate is 0 at step 0): every
   rank's parameters equal, against the port's one-process step and JAX's
@@ -144,9 +146,10 @@ def _mesh_checks(mesh, out):
     out["more_than_world"] = _error(lambda: make_mesh(dp=4, device="cpu"))
     out["idle_ranks"] = _error(lambda: make_mesh(dp=1, device="cpu"))
     tp_mesh = make_mesh(dp=1, tp=2, device="cpu")
-    out["tp_shard"] = _error(lambda: shard_params(caco_init(tcfg.caco_tiny(),
-                                                            torch.Generator()), tp_mesh))
-    out["tp_step"] = _error(lambda: ttrain.make_caco_train_step(tcfg.caco_tiny(), _tc(), tp_mesh))
+    sharded = shard_params(caco_init(tcfg.caco_tiny(), torch.Generator()), tp_mesh)
+    out["tp_shard"] = tuple(sharded.audio.blocks[0].attn.qkv.w.shape)
+    out["tp_step"] = _error(lambda: ttrain.make_caco_train_step(
+        dataclasses.replace(tcfg.caco_tiny(), num_attention_pool_heads=1), _tc(), tp_mesh))
     rows = shard_batch({"t": torch.arange(8)[:, None], "n": [np.arange(8), np.arange(16)]}, mesh)
     out["rows"] = (rows["t"][:, 0].tolist(), rows["n"][0].tolist(), rows["n"][1].tolist())
     out["indivisible"] = _error(lambda: shard_batch({"x": torch.zeros(3)}, mesh))
@@ -187,8 +190,8 @@ def test_mesh_errors_and_row_blocks(ranks):
     for r, got in enumerate(res):
         assert got["more_than_world"][0] == "ValueError" and "needs 4 ranks" in got["more_than_world"][1]
         assert got["idle_ranks"][0] == "ValueError" and "uses 1 of 2" in got["idle_ranks"][1]
-        for key in ("tp_shard", "tp_step"):
-            assert got[key][0] == "NotImplementedError" and "item 7b" in got[key][1]
+        assert got["tp_shard"] == (32, 48)  # 3 × 16 QKV columns of 32: one head of two a rank
+        assert got["tp_step"][0] == "ValueError" and "does not divide the 1 heads" in got["tp_step"][1]
         assert got["rows"] == (list(range(4 * r, 4 * r + 4)), list(range(4 * r, 4 * r + 4)),
                                list(range(8 * r, 8 * r + 8)))
         assert got["indivisible"][0] == "ValueError"

@@ -4,7 +4,8 @@ a `file://` rendezvous, one thread a rank, no JAX in the ranks) against the
 port without a mesh and the JAX package's under `make_mesh(dp=2)`, both
 computed here in the parent; then `train.runner --dp 2` launched as
 torchrun launches it (MASTER_ADDR / MASTER_PORT / RANK / WORLD_SIZE /
-LOCAL_RANK in the environment of two processes).
+LOCAL_RANK in the environment of two processes), and `--tp 2` in one
+process refused.
 
 Tolerances: the engine's fp32 embeddings 1e-5 against the port without a
 mesh and against JAX's mesh engine (each rank runs the one-device program
@@ -284,5 +285,8 @@ def test_runner_dp2_writes_from_rank0_and_resumes_across_world_sizes(data, tmp_p
 
 
 def test_runner_tp_raises(data, tmp_path):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    # --tp 2 in one process: the mesh needs two ranks (tests/test_torch_parallel_tp_serving.py
+    # runs it under a launcher), and the one-rank group the runner made is removed again
+    with pytest.raises(ValueError, match="tp=2 does not divide the 1 ranks"):
         runner.main(_args(data, str(tmp_path / "w"), 1) + ["--tp", "2"])
+    assert not dist.is_initialized()
