@@ -1,0 +1,14 @@
+"""Attention's share of its roofline in the profiled embedding calls: the
+least time of Q·Kᵀ and P·V over each clip's valid patches in every layer
+(the driver's `attention_least_s`, from work.py) ÷ the device time of the
+attention-class kernels (work.is_attention)."""
+
+from portbench import work
+
+
+def read(c):
+    t = c.get("trace")
+    busy = t.busy_s(work.is_attention) if t is not None else 0.0
+    if busy <= 0 or not c.get("attention_least_s"):
+        return None
+    return 100.0 * c["attention_least_s"] / busy
