@@ -33,6 +33,7 @@ from cacophony_tpu_torch.data.audio_io import load_audio, pad_to_buffer
 from cacophony_tpu_torch.frontend.dsp import resample_fft_host
 from cacophony_tpu_torch.frontend.patchify import wav_to_patches
 from cacophony_tpu_torch.native import wavio
+from cacophony_tpu_torch.utils.profiling import span
 
 DECODE_COUNTS = {"native": 0, "fallback": 0}
 
@@ -70,10 +71,13 @@ def subsample_patches(generator: Optional[torch.Generator], batch: Dict[str, tor
 
 def device_train_frontend(front: FrontendConfig, full_patch: PatchConfig, seq_len: int):
     """→ fn(generator, bufs (B, samples), lens (B,)) → the training patch
-    batch: every patch of the buffer (`full_patch`), then `subsample_patches`."""
+    batch: every patch of the buffer (`full_patch`), then `subsample_patches`
+    (span `train.frontend`, utils/profiling.py)."""
 
     def fn(generator: Optional[torch.Generator], bufs: torch.Tensor, lens: torch.Tensor):
-        return subsample_patches(generator, wav_to_patches(bufs, lens, front, full_patch), seq_len)
+        with span("train.frontend", device=bufs.device):
+            return subsample_patches(generator, wav_to_patches(bufs, lens, front, full_patch),
+                                     seq_len)
 
     return fn
 

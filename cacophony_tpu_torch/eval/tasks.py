@@ -21,7 +21,7 @@ from cacophony_tpu_torch.data.audio_io import load_audio
 from cacophony_tpu_torch.eval.metrics import format_metrics, retrieval_metrics
 from cacophony_tpu_torch.eval.processors import DatasetProcessor
 from cacophony_tpu_torch.runtime.engine import CacoEngine
-from cacophony_tpu_torch.utils.profiling import StageTimer
+from cacophony_tpu_torch.utils import profiling
 
 DEFAULT_ZS_PREFIX = "This is a sound of "  # reference eval_caco.py:144
 TUT_ZS_PREFIX = "This is a sound on "      # reference eval_caco.py:333
@@ -44,20 +44,22 @@ def zs_classification(
     verbose: bool = True,
 ) -> float:
     """Zero-shot: rank prompted class embeddings per clip, top-1 accuracy
-    (reference eval_caco.py:144-181)."""
-    timer = StageTimer()
+    (reference eval_caco.py:144-181).  Its report: the recorder's spans of
+    the run (each stage returns host arrays, so a stage's host time holds
+    its device work)."""
     filepaths, descriptions, _ = processor.get_filepaths_and_descriptions(split)
     class_labels = sorted({descriptions[a]["description"][0] for a in descriptions})
     class_to_idx = {c: i for i, c in enumerate(class_labels)}
 
-    with timer.stage("text_embed"):
-        text_emb = engine.embed_texts([text_prefix + c for c in class_labels])
-    with timer.stage("decode_embed_stream"):
-        # host decode streams through the engine's bounded bucket window —
-        # decode of bucket k+1 overlaps device compute of bucket k
-        audio_emb = engine.embed_audio(_load_dataset_audio(processor, filepaths))
-    with timer.stage("score"):
-        logits = engine.score(audio_emb, text_emb)
+    with profiling.recording() as stages:
+        with profiling.span("zs.text_embed"):
+            text_emb = engine.embed_texts([text_prefix + c for c in class_labels])
+        with profiling.span("zs.decode_embed_stream"):
+            # host decode streams through the engine's bounded bucket window —
+            # decode of bucket k+1 overlaps device compute of bucket k
+            audio_emb = engine.embed_audio(_load_dataset_audio(processor, filepaths))
+        with profiling.span("zs.score"):
+            logits = engine.score(audio_emb, text_emb)
     pred = logits.argmax(axis=-1)
 
     targets = np.asarray(
@@ -67,7 +69,7 @@ def zs_classification(
     if verbose:
         print(f"top 1 accuracy: {acc:.4f} ({len(filepaths)} clips, "
               f"{len(class_labels)} classes)")
-        print(timer.report())
+        print(profiling.report(stages))
     return acc
 
 

@@ -35,6 +35,7 @@ from cacophony_tpu_torch.configs import CacoConfig
 from cacophony_tpu_torch.models.audio import AudioEncoder, audio_encoder_apply
 from cacophony_tpu_torch.models.layers import Dense, cast_dense, dense, normal_init
 from cacophony_tpu_torch.parallel.tensor import copy_to_tp, gather_from_tp, tp_shard
+from cacophony_tpu_torch.utils.profiling import span
 from cacophony_tpu_torch.models.text import (
     CaptionDecoder,
     KVCache,
@@ -119,11 +120,14 @@ def get_audio_embedding(p: CacoModel, cfg: CacoConfig, audio_patches, audio_time
                         audio_freq_inds, audio_mask, *, normalize: bool = True,
                         train: bool = False, generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (embedding (B, proj), hidden (B, S, D)).  Reference caco.py:72-96."""
-    hidden = audio_encoder_apply(p.audio, cfg.audio, audio_patches, audio_time_inds,
-                                 audio_freq_inds, audio_mask, dtype=cfg.dtype, train=train,
-                                 generator=generator)
-    emb = audio_pooler_apply(p.audio_pool, cfg, hidden, audio_mask)
+    """→ (embedding (B, proj), hidden (B, S, D)).  Reference caco.py:72-96.
+    Spans `audio.encoder` and `audio.pooler` (utils/profiling.py)."""
+    with span("audio.encoder"):
+        hidden = audio_encoder_apply(p.audio, cfg.audio, audio_patches, audio_time_inds,
+                                     audio_freq_inds, audio_mask, dtype=cfg.dtype, train=train,
+                                     generator=generator)
+    with span("audio.pooler"):
+        emb = audio_pooler_apply(p.audio_pool, cfg, hidden, audio_mask)
     return (_normalize(emb) if normalize else emb), hidden
 
 

@@ -13,7 +13,15 @@ audio_patch_batch, embed_texts, score, caption).
   each filled in pinned host memory and copied with non_blocking=True, so
   filling the next bucket overlaps the device's work on earlier ones;
 - text length bucketing to {16, 32, 64, max_text_len};
-- everything under `torch.inference_mode()`.
+- everything under `torch.inference_mode()`;
+- spans and counters (utils/profiling.py) while the recorder records:
+  `engine.embed_audio` (a request each call) over `engine.fill`,
+  `engine.launch` (`engine.frontend`, then the model's `audio.encoder` and
+  `audio.pooler`) and `engine.retire` per bucket; `engine.embed_texts` (a
+  request each call) over `engine.tokenize`, `engine.text_tower` and
+  `engine.copy_back`; the counters `engine.buckets`, `engine.clips`,
+  `engine.rows` (padding included), `engine.valid_patches`,
+  `engine.patch_slots`, `engine.text_prompts` and `engine.text_rows`.
 
 Each audio-encoder layer takes the JAX package's route for the compute
 dtype and sequence length (`ops.encoder_attention.layer_route`): K1, K2 or
@@ -54,6 +62,7 @@ from cacophony_tpu_torch.models.caco import (
 )
 from cacophony_tpu_torch.ops.encoder_attention import preferred_seq_len
 from cacophony_tpu_torch.parallel.mesh import gather_rows, mesh_rows, replicate_params
+from cacophony_tpu_torch.utils.profiling import active, count, span
 
 TEXT_BUCKETS = (16, 32, 64)
 DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
@@ -126,16 +135,17 @@ class CacoEngine:
 
     def _fill(self, wavs: Sequence[np.ndarray], rows: int):
         """(rows, buffer) zero-padded clips + (rows,) lengths in host memory."""
-        bufs, lens = self._host((rows, self.buffer_samples), torch.float32), \
-            self._host((rows,), torch.int32)
-        b, n = bufs.numpy(), lens.numpy()
-        n[:] = 0
-        for i, w in enumerate(wavs):
-            k = min(len(w), self.buffer_samples)
-            b[i, :k] = np.asarray(w, np.float32)[:k]
-            b[i, k:] = 0.0
-            n[i] = k
-        b[len(wavs):] = 0.0
+        with span("engine.fill"):
+            bufs, lens = self._host((rows, self.buffer_samples), torch.float32), \
+                self._host((rows,), torch.int32)
+            b, n = bufs.numpy(), lens.numpy()
+            n[:] = 0
+            for i, w in enumerate(wavs):
+                k = min(len(w), self.buffer_samples)
+                b[i, :k] = np.asarray(w, np.float32)[:k]
+                b[i, k:] = 0.0
+                n[i] = k
+            b[len(wavs):] = 0.0
         return bufs, lens
 
     def _bucket_iter(self, wavs: Iterable[np.ndarray]):
@@ -159,37 +169,51 @@ class CacoEngine:
 
     def _wav_to_patch_batch(self, bufs: torch.Tensor, lens: torch.Tensor):
         """Host buffers → device patch dict: K8 or the unfused chain."""
-        bufs = bufs.to(self.device, non_blocking=True)
-        lens = lens.to(self.device, non_blocking=True)
-        if self.fused_frontend:
-            return fused_batch_wav_to_patches(bufs, lens, self.front, self.patch)
-        return wav_to_patches(bufs, lens, self.front, self.patch, dtype=self.cfg.dtype)
+        with span("engine.frontend"):
+            bufs = bufs.to(self.device, non_blocking=True)
+            lens = lens.to(self.device, non_blocking=True)
+            if self.fused_frontend:
+                return fused_batch_wav_to_patches(bufs, lens, self.front, self.patch)
+            return wav_to_patches(bufs, lens, self.front, self.patch, dtype=self.cfg.dtype)
+
+    def _count_bucket(self, lens: torch.Tensor, clips: int) -> None:
+        """The recorder's counters of one bucket of this rank's rows: valid
+        patches from the host lengths, slots of the patch budget."""
+        n = lens.numpy()
+        count("engine.buckets")
+        count("engine.clips", clips)
+        count("engine.rows", len(n))
+        count("engine.valid_patches", int(np.minimum(
+            num_patches_for_samples(n, self.front, self.patch), self.patch.patches_seq_len).sum()))
+        count("engine.patch_slots", len(n) * self.patch.patches_seq_len)
 
     def _audio_bucket(self, bufs: torch.Tensor, lens: torch.Tensor):
         """Launch one bucket → (host embeddings, event or None).  On a card
         the copy back is queued behind the bucket without waiting; the
         event says when it has landed.  Under a mesh this rank embeds its
         rows and the embeddings are gathered."""
-        rows = self._rows(bufs.shape[0])
-        batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
-        emb, _ = get_audio_embedding(self.params, self.cfg, batch["audio_patches"],
-                                     batch["audio_time_inds"], batch["audio_freq_inds"],
-                                     batch["audio_mask"])
-        emb = self._gather(emb)
-        if self.device.type != "cuda":
-            return emb, None
-        host = self._host(emb.shape, emb.dtype)
-        host.copy_(emb, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+        with span("engine.launch", device=self.device):
+            rows = self._rows(bufs.shape[0])
+            batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
+            emb, _ = get_audio_embedding(self.params, self.cfg, batch["audio_patches"],
+                                         batch["audio_time_inds"], batch["audio_freq_inds"],
+                                         batch["audio_mask"])
+            emb = self._gather(emb)
+            if self.device.type != "cuda":
+                return emb, None
+            host = self._host(emb.shape, emb.dtype)
+            host.copy_(emb, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, done
 
     @staticmethod
     def _retire(launched) -> np.ndarray:
         host, done = launched
-        if done is not None:
-            done.synchronize()
-        return host.numpy()
+        with span("engine.retire"):
+            if done is not None:
+                done.synchronize()
+            return host.numpy()
 
     # -------------------------------------------------------------- public
 
@@ -204,18 +228,21 @@ class CacoEngine:
         window is full.  One stream runs the buckets in order, so waiting on
         a bucket's own event (not a blocking copy, which would wait for
         every later bucket too) is what keeps the others in flight."""
-        pending, out, total = collections.deque(), [], 0
-        self.peak_in_flight = 0
-        for bufs, lens, count in self._bucket_iter(wavs):
-            total += count
-            if len(pending) == DISPATCH_WINDOW:
-                out.append(self._retire(pending.popleft()))
-            pending.append(self._audio_bucket(bufs, lens))
-            self.peak_in_flight = max(self.peak_in_flight, len(pending))
-        out.extend(self._retire(p) for p in pending)
-        if not out:
-            return np.zeros((0, self.cfg.projection_size), np.float32)
-        return np.concatenate(out)[:total]
+        with span("engine.embed_audio", request=True):
+            pending, out, total = collections.deque(), [], 0
+            self.peak_in_flight = 0
+            for bufs, lens, clips in self._bucket_iter(wavs):
+                total += clips
+                if active():
+                    self._count_bucket(lens[self._rows(len(lens))], clips)
+                if len(pending) == DISPATCH_WINDOW:
+                    out.append(self._retire(pending.popleft()))
+                pending.append(self._audio_bucket(bufs, lens))
+                self.peak_in_flight = max(self.peak_in_flight, len(pending))
+            out.extend(self._retire(p) for p in pending)
+            if not out:
+                return np.zeros((0, self.cfg.projection_size), np.float32)
+            return np.concatenate(out)[:total]
 
     @torch.inference_mode()
     def audio_patch_batch(self, wavs: Sequence[np.ndarray]):
@@ -262,30 +289,37 @@ class CacoEngine:
         covering the longest prompt, embed; → (n, proj) normalized."""
         if self.tokenizer is None:
             raise ValueError("engine needs a tokenizer for text")
-        tok = self.tokenizer(list(texts), padding="max_length", truncation=True,
-                             max_length=self.max_text_len, return_tensors="np")
-        ids = np.asarray(tok["input_ids"], np.int32)
-        mask = np.asarray(tok["attention_mask"], np.int32)
-        longest = int(mask.sum(axis=1).max()) if len(ids) else 1
-        bucket = next((b for b in TEXT_BUCKETS if b >= longest and b < self.max_text_len),
-                      self.max_text_len)
-        ids, mask = ids[:, :bucket], mask[:, :bucket]
-        n = len(ids)
-        n_pad = -(-n // self.batch_size) * self.batch_size
-        if n_pad != n:
-            pad = n_pad - n
-            ids = np.concatenate([ids, np.ones((pad, ids.shape[1]), np.int32)])
-            mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), np.int32)])
-            mask[n:, 0] = 1  # avoid fully-masked softmax rows in padding
-        out = []
-        for i in range(0, n_pad, self.batch_size):
-            rows = self._rows(self.batch_size)
-            emb, _ = get_text_embedding(
-                self.params, self.cfg,
-                torch.from_numpy(ids[i:i + self.batch_size][rows]).to(self.device),
-                torch.from_numpy(mask[i:i + self.batch_size][rows]).to(self.device))
-            out.append(self._gather(emb).cpu().numpy())
-        return np.concatenate(out)[:n]
+        with span("engine.embed_texts", request=True):
+            with span("engine.tokenize"):
+                tok = self.tokenizer(list(texts), padding="max_length", truncation=True,
+                                     max_length=self.max_text_len, return_tensors="np")
+                ids = np.asarray(tok["input_ids"], np.int32)
+                mask = np.asarray(tok["attention_mask"], np.int32)
+                longest = int(mask.sum(axis=1).max()) if len(ids) else 1
+                bucket = next((b for b in TEXT_BUCKETS if b >= longest and b < self.max_text_len),
+                              self.max_text_len)
+                ids, mask = ids[:, :bucket], mask[:, :bucket]
+                n = len(ids)
+                n_pad = -(-n // self.batch_size) * self.batch_size
+                if n_pad != n:
+                    pad = n_pad - n
+                    ids = np.concatenate([ids, np.ones((pad, ids.shape[1]), np.int32)])
+                    mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), np.int32)])
+                    mask[n:, 0] = 1  # avoid fully-masked softmax rows in padding
+            count("engine.text_prompts", n)
+            count("engine.text_rows", n_pad)
+            out = []
+            for i in range(0, n_pad, self.batch_size):
+                with span("engine.text_tower", device=self.device):
+                    rows = self._rows(self.batch_size)
+                    emb, _ = get_text_embedding(
+                        self.params, self.cfg,
+                        torch.from_numpy(ids[i:i + self.batch_size][rows]).to(self.device),
+                        torch.from_numpy(mask[i:i + self.batch_size][rows]).to(self.device))
+                    emb = self._gather(emb)
+                with span("engine.copy_back"):
+                    out.append(emb.cpu().numpy())
+            return np.concatenate(out)[:n]
 
     @torch.inference_mode()
     def score(self, audio_emb: np.ndarray, text_emb: np.ndarray) -> np.ndarray:

@@ -25,6 +25,11 @@ each rank's block, gathers the scores and global row indices, and merges
 them, so it returns what the one-device gallery returns.  `save` gathers
 to rank 0, which writes the same npz; `load(…, mesh=)` splits it.  Every
 rank must make the same calls with the same arguments.
+
+`search` records spans (utils/profiling.py) while the recorder records:
+`gallery.search` over `gallery.product` (the scaled product and the mask),
+`gallery.topk` and `gallery.copy_back`, and counts `gallery.rows_scanned`
+(this rank's rows scored, times the queries).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from cacophony_tpu_torch.parallel.mesh import gather_rows
+from cacophony_tpu_torch.utils.profiling import count, span
 
 
 def _order(vals: torch.Tensor, idx: torch.Tensor):
@@ -174,22 +180,28 @@ class GalleryIndex:
         live-row count, equal scores lower index first."""
         if self.size <= self.num_deleted:
             raise ValueError("empty gallery")
-        q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
-        k = min(k, self.size - self.num_deleted)
-        scale = torch.exp(torch.tensor(self.logit_scale, dtype=torch.float32))
-        scores = float(scale) * q @ self._store.T
-        scores = torch.where(self._valid[None, :], scores, -torch.inf)
-        top_scores, top_idx = topk_lowest_first(scores, min(k, scores.shape[1]))
-        if self.mesh is not None:  # merge the ranks' candidates
-            cand_s = gather_rows(top_scores[None], self._group)
-            cand_i = gather_rows((top_idx + self._lo)[None], self._group)
-            nq = q.shape[0]
-            top_scores, top_idx = _order(cand_s.permute(1, 0, 2).reshape(nq, -1),
-                                         cand_i.permute(1, 0, 2).reshape(nq, -1))
-            top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        top_scores, top_idx = top_scores.cpu().numpy(), top_idx.cpu().numpy().astype(np.int32)
-        labels = [[self._labels[j] for j in row] for row in top_idx]
-        return top_scores, top_idx, labels
+        with span("gallery.search", device=self.device):
+            with span("gallery.product", device=self.device):
+                q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+                k = min(k, self.size - self.num_deleted)
+                scale = torch.exp(torch.tensor(self.logit_scale, dtype=torch.float32))
+                scores = float(scale) * q @ self._store.T
+                scores = torch.where(self._valid[None, :], scores, -torch.inf)
+            count("gallery.rows_scanned", scores.shape[0] * scores.shape[1])
+            with span("gallery.topk", device=self.device):
+                top_scores, top_idx = topk_lowest_first(scores, min(k, scores.shape[1]))
+            if self.mesh is not None:  # merge the ranks' candidates
+                cand_s = gather_rows(top_scores[None], self._group)
+                cand_i = gather_rows((top_idx + self._lo)[None], self._group)
+                nq = q.shape[0]
+                top_scores, top_idx = _order(cand_s.permute(1, 0, 2).reshape(nq, -1),
+                                             cand_i.permute(1, 0, 2).reshape(nq, -1))
+                top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+            with span("gallery.copy_back"):
+                top_scores = top_scores.cpu().numpy()
+                top_idx = top_idx.cpu().numpy().astype(np.int32)
+            labels = [[self._labels[j] for j in row] for row in top_idx]
+            return top_scores, top_idx, labels
 
     # ------------------------------------------------------------ persist
 

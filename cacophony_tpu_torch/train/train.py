@@ -88,6 +88,7 @@ from cacophony_tpu_torch.train.losses import (
     clip_contrastive_loss,
     mae_reconstruction_loss,
 )
+from cacophony_tpu_torch.utils.profiling import span
 
 _DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -289,7 +290,9 @@ def make_caco_loss(cfg: CacoConfig, tc: TrainConfig, mesh=None):
 def _make_step(loss_fn, tc: TrainConfig, mesh=None):
     """→ step(state, batch, generator) → (state, metrics): loss_fn's
     gradients (summed over dp under a mesh), their global norm (over tp's
-    blocks too), one AdamW update in place."""
+    blocks too), one AdamW update in place.  Spans (utils/profiling.py):
+    `train.forward`, `train.backward`, `train.grad_norm` (the dp all-reduce
+    included) and `train.optimizer`."""
     group = _dp_group(mesh)
     if torch.cuda.is_available():
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -302,16 +305,21 @@ def _make_step(loss_fn, tc: TrainConfig, mesh=None):
         model = state.params
         for p in model.parameters():
             p.grad = None
-        loss, metrics = loss_fn(model, batch, generator)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in model.parameters()]
-        if group is not None and group_size(group) > 1:
-            coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
-        layout, shard = getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None)
-        norm = global_norm(grads, [name in layout for name, _ in model.named_parameters()],
-                           shard.group if shard is not None else None)
-        opt_state = opt.update(model, grads, state.opt_state, norm)
+        dev = p.device
+        with span("train.forward", device=dev):
+            loss, metrics = loss_fn(model, batch, generator)
+        with span("train.backward", device=dev):
+            loss.backward()
+        with span("train.grad_norm", device=dev):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in model.parameters()]
+            if group is not None and group_size(group) > 1:
+                coalesced(grads, lambda flat: dist.all_reduce(flat, group=group))
+            layout, shard = getattr(model, "tp_layout", {}), getattr(model, "tp_shard", None)
+            norm = global_norm(grads, [name in layout for name, _ in model.named_parameters()],
+                               shard.group if shard is not None else None)
+        with span("train.optimizer", device=dev):
+            opt_state = opt.update(model, grads, state.opt_state, norm)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = norm
         return TrainState(model, opt_state, state.step + 1), metrics

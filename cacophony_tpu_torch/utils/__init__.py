@@ -1,3 +1,3 @@
 """Metrics logging and profiling hooks."""
 from cacophony_tpu_torch.utils.observability import MetricsLogger  # noqa: F401
-from cacophony_tpu_torch.utils.profiling import StageTimer, annotate, trace  # noqa: F401
+from cacophony_tpu_torch.utils.profiling import trace  # noqa: F401

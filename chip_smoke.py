@@ -2659,7 +2659,7 @@ def read_json(*parts):
 
 
 def stage_seconds(out: str, stage: str) -> float:
-    """A StageTimer stage's seconds from a captured report."""
+    """A span's total seconds from a captured `profiling.report`."""
     line = next(l for l in out.splitlines() if l.startswith(f"{stage}: "))
     return float(line.split()[1].rstrip("s"))
 
@@ -2714,7 +2714,7 @@ def eval_phase(cfg, caco_dir, tok_dir, esc, clotho, tmp, label):
             acc = res["esc50"]
             check(saved == {"task": "zs", "top1_accuracy": res} and 0.0 <= acc <= 1.0,
                   f"zs {dt}: results {res}, file {saved}")
-            decode_embed = stage_seconds(text, "decode_embed_stream")
+            decode_embed = stage_seconds(text, "zs.decode_embed_stream")
             rate = n_esc / decode_embed
             out[f"zs_{dt}"] = {"top1": acc, "wall_s": wall, "decode_embed_s": decode_embed,
                                "clips_per_s": rate}
@@ -2923,7 +2923,7 @@ def rate_phase(cfg, caco_dir, mae_dir, tok_dir, tmp, label):
                 (_, text), _ = drive(f"eval --task zs --dtype {dt}, {n_esc} clips of 5 s (rate)",
                                      lambda: echoed(eval_cli.main, zs + ["--dtype", dt]),
                                      {key: n * buckets})
-                zs_rates[dt].append(n_esc / stage_seconds(text, "decode_embed_stream"))
+                zs_rates[dt].append(n_esc / stage_seconds(text, "zs.decode_embed_stream"))
 
     tasks = os.path.join(tmp, "rate_tasks")
     task = "kfold-v1.0.0-full"

@@ -24,6 +24,9 @@ UNPORTED_PACKAGES = {}
 # Names of a ported package that the port leaves out, and why.
 LEFT_OUT = {
     "ops": {"attention_init": "JAX-only: the port's parameters are nn.Modules"},
+    "utils": {"StageTimer": "the port's one recorder (utils/profiling.py: span, report) "
+                            "replaces it: a stage timer synchronises the card",
+              "annotate": "the port's one recorder: `span` in place of a profiler range"},
 }
 # Names the port exports where the JAX package has no counterpart.
 PORT_ONLY = {

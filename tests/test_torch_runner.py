@@ -30,7 +30,7 @@ from cacophony_tpu_torch.models.audio import AudioMAE, audiomae_init
 from cacophony_tpu_torch.models.caco import caco_init
 from cacophony_tpu_torch.train import runner
 from cacophony_tpu_torch.train.train import TrainConfig, init_train_state, make_caco_train_step
-from cacophony_tpu_torch.utils import MetricsLogger, StageTimer, annotate, trace
+from cacophony_tpu_torch.utils import MetricsLogger, profiling, trace
 
 torch.set_num_threads(2)
 
@@ -242,15 +242,20 @@ def test_metrics_logger(tmp_path, capsys):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    t = StageTimer()
+    """The recorder's report (per-name totals, calls, ms per call) and its
+    spans in `trace`'s Chrome trace, on their own track."""
     x = torch.ones(8, 8)
-    for _ in range(2):
-        with t.stage("matmul", result_fetch=x):
-            with annotate("mm"):
-                x @ x
-    assert t.counts["matmul"] == 2 and t.totals["matmul"] > 0
-    assert "matmul" in t.report() and "2 calls" in t.report()
+    with profiling.recording() as rec:
+        for _ in range(2):
+            with profiling.span("matmul"):
+                with profiling.span("mm"):
+                    x @ x
+    assert [s.name for s in rec.spans] == ["matmul", "mm", "matmul", "mm"]
+    text = profiling.report(rec)
+    assert "matmul: " in text and "2 calls" in text and "ms/call" in text
     with trace(str(tmp_path / "trace")):
-        with annotate("region"):
+        with profiling.span("region"):
             x @ x
-    assert "region" in open(tmp_path / "trace" / "trace.json").read()
+    doc = json.load(open(tmp_path / "trace" / "trace.json"))
+    mine = [e for e in doc["traceEvents"] if e.get("cat") == "program_span"]
+    assert [e["name"] for e in mine] == ["region"] and mine[0]["pid"] == "program spans"
