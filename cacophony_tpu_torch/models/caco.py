@@ -236,21 +236,22 @@ def step_logits(text_p, dec_p, cfg: CacoConfig, state: DecodeState, current: tor
 
 
 class GraphedStep:
-    """fn(current) → fp32 logits, captured once in a CUDA graph after one
-    warm-up call on a side stream.  Calling it copies `current` into the
-    graph's input buffer and replays; the logits come back in the graph's
-    output buffer.  fn must read and write only tensors that outlive the
-    graph (the caches, the index, the cross K/V, the weights): the graph
-    keeps fn, and with it what fn's closure holds.  A capture that fails
-    raises."""
+    """fn(*inputs) → output, captured once in a CUDA graph after one warm-up
+    call on a side stream.  Calling it copies each input into the graph's
+    buffer for it (a host tensor without waiting for the card) and replays;
+    the output comes back in the graph's output buffer, overwritten by the
+    next replay.  fn must read and write only tensors that outlive the
+    graph (decode: the caches, the index, the cross K/V, the weights; the
+    engine's text tower: the parameters, read live): the graph keeps fn,
+    and with it what fn's closure holds.  A capture that fails raises."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], current: torch.Tensor):
-        self.fn = fn  # keeps what the graph reads alive (the cast weights in fn's closure)
-        self.current = current.clone()
+    def __init__(self, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor):
+        self.fn = fn  # keeps what the graph reads alive (the weights in fn's closure)
+        self.inputs = tuple(x.clone() for x in inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn(self.current)
+            fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         # No cyclic garbage collection during capture: freeing another
@@ -260,15 +261,16 @@ class GraphedStep:
         gc.disable()
         try:
             with torch.cuda.graph(self.graph):
-                self.logits = fn(self.current)
+                self.output = fn(*self.inputs)
         finally:
             if collecting:
                 gc.enable()
 
-    def __call__(self, current: torch.Tensor) -> torch.Tensor:
-        self.current.copy_(current)
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x, non_blocking=True)
         self.graph.replay()
-        return self.logits
+        return self.output
 
 
 def decode_step(step: Callable[[torch.Tensor], torch.Tensor], state: DecodeState, *,

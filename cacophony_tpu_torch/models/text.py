@@ -232,8 +232,12 @@ def text_pooler_apply(p: TextPooler, hidden: torch.Tensor, mask: Optional[torch.
                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Single learned-query attention pool; softmax statistics in fp32."""
     d = hidden.shape[-1]
-    key = dense(p.key, hidden, dtype) / torch.sqrt(
-        torch.tensor(float(d), dtype=hidden.dtype, device=hidden.device))
+    # √d in hidden's dtype, a 0-d tensor filled on hidden's device: a
+    # small tensor copied to the card would wait for it, and a CUDA graph
+    # cannot capture the copy; a Python divisor would multiply by its
+    # reciprocal on the card, where a tensor divides
+    key = dense(p.key, hidden, dtype) / torch.full(
+        (), float(d), dtype=hidden.dtype, device=hidden.device).sqrt()
     value = dense(p.value, hidden, dtype)
     logits = torch.einsum("mh,bnh->bmn", p.query.to(hidden.dtype), key)
     if mask is not None:

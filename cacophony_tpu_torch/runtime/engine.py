@@ -12,7 +12,10 @@ audio_patch_batch, embed_texts, score, caption).
 - a bounded dispatch window: at most DISPATCH_WINDOW buckets in flight,
   each filled in pinned host memory and copied with non_blocking=True, so
   filling the next bucket overlaps the device's work on earlier ones;
-- text length bucketing to {16, 32, 64, max_text_len};
+- text length bucketing to {16, 32, 64, max_text_len}; on a card the
+  text tower runs as one CUDA graph per (rows, bucket), captured on the
+  shape's first use and replayed for every chunk after it (the host's
+  launches of its ~730 small kernels a chunk were most of a query's time);
 - everything under `torch.inference_mode()`;
 - spans and counters (utils/profiling.py) while the recorder records:
   `engine.embed_audio` (a request each call) over `engine.fill`,
@@ -21,7 +24,9 @@ audio_patch_batch, embed_texts, score, caption).
   request each call) over `engine.tokenize`, `engine.text_tower` and
   `engine.copy_back`; the counters `engine.buckets`, `engine.clips`,
   `engine.rows` (padding included), `engine.valid_patches`,
-  `engine.patch_slots`, `engine.text_prompts` and `engine.text_rows`.
+  `engine.patch_slots`, `engine.text_prompts` and `engine.text_rows`, and
+  on a card `engine.text_graph_captures` (one a shape) and
+  `engine.text_graph_replays` (one a chunk).
 
 Each audio-encoder layer takes the JAX package's route for the compute
 dtype and sequence length (`ops.encoder_attention.layer_route`): K1, K2 or
@@ -55,6 +60,7 @@ from cacophony_tpu_torch.frontend.fused import fused_batch_wav_to_patches
 from cacophony_tpu_torch.frontend.patchify import num_patches_for_samples, wav_to_patches
 from cacophony_tpu_torch.models.caco import (
     CacoModel,
+    GraphedStep,
     contrastive_logits,
     decode,
     get_audio_embedding,
@@ -126,6 +132,7 @@ class CacoEngine:
                     f"on its batch shard)")
             replicate_params(self.params)
         self.peak_in_flight = 0  # most audio buckets in flight in the last embed_audio
+        self._text_graphs = {}  # (rows, bucket) → the text tower's GraphedStep on a card
 
     # ------------------------------------------------------------- helpers
 
@@ -283,40 +290,67 @@ class CacoEngine:
         out /= counts[:, None]
         return out / np.linalg.norm(out, axis=-1, keepdims=True)
 
+    def _text_batch(self, texts: Sequence[str]):
+        """Tokenize (pad to max_text_len), trim to the smallest length bucket
+        covering the longest prompt, pad the rows to a multiple of
+        batch_size → (ids, mask) int32 (rows, bucket) and the prompt count."""
+        tok = self.tokenizer(list(texts), padding="max_length", truncation=True,
+                             max_length=self.max_text_len, return_tensors="np")
+        ids = np.asarray(tok["input_ids"], np.int32)
+        mask = np.asarray(tok["attention_mask"], np.int32)
+        longest = int(mask.sum(axis=1).max()) if len(ids) else 1
+        bucket = next((b for b in TEXT_BUCKETS if b >= longest and b < self.max_text_len),
+                      self.max_text_len)
+        ids, mask = ids[:, :bucket], mask[:, :bucket]
+        n = len(ids)
+        n_pad = -(-n // self.batch_size) * self.batch_size
+        if n_pad != n:
+            pad = n_pad - n
+            ids = np.concatenate([ids, np.ones((pad, ids.shape[1]), np.int32)])
+            mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), np.int32)])
+            mask[n:, 0] = 1  # avoid fully-masked softmax rows in padding
+        return ids, mask, n
+
+    def _text_tower(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """This rank's rows of one chunk → their embeddings on the device.
+        On the CPU `get_text_embedding` runs eagerly; on a card, as the
+        replay of a CUDA graph captured on the shape's first use (`GraphedStep`;
+        counters `engine.text_graph_captures`, `engine.text_graph_replays`).
+        The graph casts the live parameters in every replay, so an in-place
+        update of them is seen without a new capture."""
+        ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+        if self.device.type != "cuda":
+            return get_text_embedding(self.params, self.cfg, ids, mask)[0]
+        graph = self._text_graphs.get(ids.shape)
+        if graph is None:
+            count("engine.text_graph_captures")
+            params, cfg = self.params, self.cfg
+
+            def tower(ids, mask):  # holds no reference to self: the graphs go with the engine
+                return get_text_embedding(params, cfg, ids, mask)[0]
+
+            graph = self._text_graphs[ids.shape] = GraphedStep(
+                tower, ids.to(self.device), mask.to(self.device))
+        count("engine.text_graph_replays")
+        return graph(ids, mask)
+
     @torch.inference_mode()
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
-        """Tokenize (pad to max_text_len), trim to the smallest length bucket
-        covering the longest prompt, embed; → (n, proj) normalized."""
+        """Texts → (n, proj) normalized embeddings, batch_size rows at a
+        time (`_text_batch`, `_text_tower`)."""
         if self.tokenizer is None:
             raise ValueError("engine needs a tokenizer for text")
         with span("engine.embed_texts", request=True):
             with span("engine.tokenize"):
-                tok = self.tokenizer(list(texts), padding="max_length", truncation=True,
-                                     max_length=self.max_text_len, return_tensors="np")
-                ids = np.asarray(tok["input_ids"], np.int32)
-                mask = np.asarray(tok["attention_mask"], np.int32)
-                longest = int(mask.sum(axis=1).max()) if len(ids) else 1
-                bucket = next((b for b in TEXT_BUCKETS if b >= longest and b < self.max_text_len),
-                              self.max_text_len)
-                ids, mask = ids[:, :bucket], mask[:, :bucket]
-                n = len(ids)
-                n_pad = -(-n // self.batch_size) * self.batch_size
-                if n_pad != n:
-                    pad = n_pad - n
-                    ids = np.concatenate([ids, np.ones((pad, ids.shape[1]), np.int32)])
-                    mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), np.int32)])
-                    mask[n:, 0] = 1  # avoid fully-masked softmax rows in padding
+                ids, mask, n = self._text_batch(texts)
             count("engine.text_prompts", n)
-            count("engine.text_rows", n_pad)
+            count("engine.text_rows", len(ids))
             out = []
-            for i in range(0, n_pad, self.batch_size):
+            for i in range(0, len(ids), self.batch_size):
                 with span("engine.text_tower", device=self.device):
                     rows = self._rows(self.batch_size)
-                    emb, _ = get_text_embedding(
-                        self.params, self.cfg,
-                        torch.from_numpy(ids[i:i + self.batch_size][rows]).to(self.device),
-                        torch.from_numpy(mask[i:i + self.batch_size][rows]).to(self.device))
-                    emb = self._gather(emb)
+                    emb = self._gather(self._text_tower(ids[i:i + self.batch_size][rows],
+                                                        mask[i:i + self.batch_size][rows]))
                 with span("engine.copy_back"):
                     out.append(emb.cpu().numpy())
             return np.concatenate(out)[:n]

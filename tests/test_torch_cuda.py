@@ -23,8 +23,9 @@ one layer a tower (the reconstruction forward's routes against the CPU,
 one loss and backward's K4 / K7 counts, fp32 against the CPU),
 `load_audiomae` onto the card and two steps of `runner --stage mae`;
 greedy fp32 decode at caco_tiny on the card (the step as a CUDA graph and
-eager) against the CPU token for token, gallery search on the card
-against the CPU; the HEAR embedders' forward at published audio width
+eager) against the CPU token for token, the engine's text tower as a
+CUDA graph per shape against the eager tower bit for bit, gallery search
+on the card against the CPU; the HEAR embedders' forward at published audio width
 (one layer, 500 patches, K2) against the CPU with the padded rows, and
 one HEAR probe step on the card against the CPU.
 
@@ -1091,6 +1092,77 @@ def test_gallery_search_on_the_card_matches_cpu(cuda):
         out[dev] = g.search(rows[:32], k=10)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-5)
+
+
+class _IdTokenizer:
+    """Stands in for the tokenizer: a prompt is a list of ids, padded with
+    id 1 to max_length."""
+
+    def __call__(self, prompts, padding=None, truncation=True, max_length=None,
+                 return_tensors="np"):
+        ids = np.ones((len(prompts), max_length), np.int32)
+        mask = np.zeros((len(prompts), max_length), np.int32)
+        for i, p in enumerate(prompts):
+            p = list(p)[:max_length]
+            ids[i, :len(p)], mask[i, :len(p)] = p, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("longest,bucket", [(10, 16), (30, 32), (50, 64), (90, 100)])
+def test_text_tower_graph_matches_eager_bit_for_bit(cuda, longest, bucket):
+    """`embed_texts` on the card replays one CUDA graph per (rows, bucket):
+    bit for bit the eager `get_text_embedding` of the same padded ids at
+    caco_tiny in bf16, for 1 prompt, batch_size prompts and two chunks,
+    and again after new weights are copied into the text tower in place
+    (no new capture); one capture a shape, one replay a chunk."""
+    from cacophony_tpu_torch import configs
+    from cacophony_tpu_torch.models.caco import caco_init, get_text_embedding
+    from cacophony_tpu_torch.runtime import CacoEngine
+    from cacophony_tpu_torch.utils import profiling
+
+    cfg = configs.caco_tiny()
+    engine = CacoEngine(cfg, caco_init(cfg, torch.Generator().manual_seed(5)),
+                        tokenizer=_IdTokenizer(), device=cuda, batch_size=4, max_text_len=100,
+                        dtype=torch.bfloat16)
+    rs = np.random.RandomState(longest)
+    calls = [[rs.randint(3, cfg.text.vocab_size, k).tolist()
+              for k in [longest, *rs.randint(2, longest + 1, n - 1)]] for n in (1, 4, 7)]
+
+    @torch.inference_mode()
+    def eager(texts):
+        ids, mask, n = engine._text_batch(texts)
+        assert ids.shape[1] == bucket
+        return torch.cat([get_text_embedding(
+            engine.params, engine.cfg, torch.from_numpy(ids[i:i + 4]).to(cuda),
+            torch.from_numpy(mask[i:i + 4]).to(cuda))[0].cpu()
+            for i in range(0, len(ids), 4)]).numpy()[:n]
+
+    first = None
+    for new_weights in (False, True):
+        if new_weights:
+            other = caco_init(cfg, torch.Generator().manual_seed(6))
+            with torch.no_grad():
+                for mine, theirs in ((engine.params.text, other.text),
+                                     (engine.params.text_proj, other.text_proj)):
+                    for p, q in zip(mine.parameters(), theirs.parameters()):
+                        p.copy_(q)
+        for j, texts in enumerate(calls):
+            with profiling.recording() as rec:
+                got = engine.embed_texts(texts)
+            chunks = -(-len(texts) // 4)
+            assert got.shape == (len(texts), cfg.projection_size)
+            assert np.array_equal(got, eager(texts)), (new_weights, len(texts))
+            captures = {"engine.text_graph_captures": 1} if (j, new_weights) == (0, False) else {}
+            assert rec.counters == {"engine.text_prompts": len(texts),
+                                    "engine.text_rows": 4 * chunks,
+                                    "engine.text_graph_replays": chunks, **captures}
+            if j == 0:
+                if first is None:
+                    first = got
+                else:
+                    assert not np.array_equal(got, first)  # the new weights were read
+    assert list(engine._text_graphs) == [(4, bucket)]
 
 
 def _hear_model(kind, seed):
