@@ -65,6 +65,7 @@ from cacophony_tpu_torch.models.layers import (
     silu,
     sincos_time_embedding,
 )
+from cacophony_tpu_torch.ops import _kernels as kern
 from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.ops.attention import Attention, multi_head_attention
 from cacophony_tpu_torch.parallel.tensor import tp_shard
@@ -190,11 +191,41 @@ def encoder_layer(blk: ViTBlock, x: torch.Tensor, mask: torch.Tensor, num_heads:
     raise ValueError(f"unknown encoder layer route {route!r}")
 
 
+class _TableRows(torch.autograd.Function):
+    """`table.to(dtype)[inds]` (a cast and a gather commute, so these are
+    the same bits) whose backward sums the table's gradient in fp32 and hands
+    it straight to the table, past the cast: the gather's own backward would
+    add a few rows' tens of thousands of duplicates one after another in
+    `dtype`.  The sum is `kern.table_grad`: its kernel on the card, the
+    plain fp32 sum on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, inds, dtype):
+        ctx.save_for_backward(inds)
+        ctx.n_rows = table.shape[0]
+        return table.to(dtype)[inds]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inds,) = ctx.saved_tensors
+        g, inds = g.reshape(-1, g.shape[-1]).contiguous(), inds.reshape(-1)
+        return kern.table_grad(g, inds, ctx.n_rows), None, None
+
+
+def table_rows(table: torch.Tensor, inds: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`table.to(dtype)[inds]`; where the table takes a gradient, through
+    `_TableRows`, whose backward sums it in fp32."""
+    inds = inds.long()
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _TableRows.apply(table, inds, dtype)
+    return table.to(dtype)[inds]
+
+
 def _add_positions(x: torch.Tensor, freq_pos_embed: torch.Tensor, time_inds: torch.Tensor,
                    freq_inds: torch.Tensor) -> torch.Tensor:
     """x plus the sin-cos time and learned frequency embeddings, in x's dtype."""
     x = x + sincos_time_embedding(time_inds, x.shape[-1]).to(x.dtype)
-    return x + freq_pos_embed.to(x.dtype)[freq_inds.long()]
+    return x + table_rows(freq_pos_embed, freq_inds, x.dtype)
 
 
 def audio_input_embedding(p: AudioEncoder, cfg: AudioEncoderConfig, patches: torch.Tensor,

@@ -13,7 +13,8 @@ Each kernel has three things:
 - a plain PyTorch version (`*_plain`) with the kernel's numerics, on any
   device: the CPU tests run it, and chip_smoke.py holds the kernel to it;
 - a wrapper (`layer_norm`, `gemm`, `attention`, `attention_k4`,
-  `attention_k5`, `attention_bwd` here; `fused_log_mel` in frontend/fused.py)
+  `attention_k5`, `attention_bwd`, `table_grad` here; `fused_log_mel` in
+  frontend/fused.py)
   that runs the plain version for a tensor on the CPU
   and launches the kernel for a CUDA tensor — it checks device, dtype,
   shape and contiguity and raises on anything the kernel does not take; it
@@ -25,6 +26,7 @@ Each kernel has three things:
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,13 +50,16 @@ EPI_BIAS, EPI_BIAS_RESID_F32, EPI_BIAS_SILU, EPI_BIAS_CAST_ADD = range(4)
 # (and K3′/K6) chains, "k4" and "k5" the stand-alone attention kernels, "k7"
 # K4's backward (one count per call, which launches its two or three CUDA
 # kernels),
-# "log_mel" K8 and "log_mel_fast" its bf16×3 form K8′.
+# "log_mel" K8 and "log_mel_fast" its bf16×3 form K8′, "table_grad" the
+# gradient of a gather from a small table (one count per call, two CUDA
+# kernels).
 LAUNCHES: Dict[str, int] = {"layer_norm": 0, "gemm": 0, "attention": 0, "k4": 0, "k5": 0,
-                            "k7": 0, "log_mel": 0, "log_mel_fast": 0}
+                            "k7": 0, "log_mel": 0, "log_mel_fast": 0, "table_grad": 0}
 # launch-count key → C entry point
 _SYMBOLS = {"layer_norm": "k1_layer_norm", "gemm": "k1_gemm", "attention": "caco_attention",
             "k4": "caco_attention", "k5": "caco_attention", "k7": "caco_attention_bwd",
-            "log_mel": "k8_log_mel", "log_mel_fast": "k8_log_mel_fast"}
+            "log_mel": "k8_log_mel", "log_mel_fast": "k8_log_mel_fast",
+            "table_grad": "table_grad"}
 
 _VSCALE = 2.0 ** -24
 _SOFTMAX_CLAMP = 80.0
@@ -144,6 +149,7 @@ def load_library() -> ctypes.CDLL:
     lib.caco_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
     lib.k8_log_mel.argtypes = [p, p, p, p, i, p, *[i] * 9, f, f, f, p]
     lib.k8_log_mel_fast.argtypes = [p, p, p, p, p, i, p, *[i] * 9, f, f, f, p]
+    lib.table_grad.argtypes = [i, i, p, p, i, i, i, i, p, p, p]
     lib.k1_silu_sweep.argtypes = [p, p]
     lib.k1_silu_sweep.restype = ctypes.c_int
     for sym in set(_SYMBOLS.values()):
@@ -452,3 +458,49 @@ def attention_bwd(qkv, mask, g, num_heads: int, causal: bool = False):
             dq_acc.data_ptr() if dq_acc is not None else None, b, s, num_heads, hd,
             q_scale(hd, qkv.dtype), ds_scale(hd), int(causal))
     return dqkv
+
+
+# -------------------------------------------------- gather from a small table
+
+# csrc/table_grad.cu keeps an fp32 (n_rows, D) accumulator a CTA in 48 KB of
+# shared memory; its grid is at most TABLE_GRAD_CTAS_PER_SM CTAs an SM, each
+# over at least TABLE_GRAD_MIN_ROWS rows.
+TABLE_GRAD_MAX_FLOATS = 48 * 1024 // 4
+TABLE_GRAD_CTAS_PER_SM = 4
+TABLE_GRAD_MIN_ROWS = 64
+
+
+def table_grad_plain(g, inds, n_rows: int):
+    """The rows of g (N, D) summed into the table row each index of inds
+    (N,) names, in fp32 → (n_rows, D): the gradient of `table[inds]`."""
+    out = torch.zeros(n_rows, g.shape[-1], dtype=torch.float32, device=g.device)
+    return out.index_add_(0, inds.long(), g.float())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def table_grad(g, inds, n_rows: int):
+    """`table_grad_plain` by csrc/table_grad.cu: one wave of CTAs sums
+    slices of the rows into fp32 partial tables in shared memory, a second
+    pass sums the partials in a fixed order, so a call repeats bit for bit.
+    Rows whose index lies outside [0, n_rows) add nothing on the card."""
+    if _device_kind(g, inds) == "cpu":
+        return table_grad_plain(g, inds, n_rows)
+    _check_common(g)
+    _need(g.dim() == 2, "g must be (N, D)")
+    n, width = g.shape
+    _need(inds.shape == (n,) and inds.dtype in (torch.int32, torch.int64)
+          and inds.is_contiguous(), "inds must be contiguous int32 or int64 (N,)")
+    _need(0 < n_rows * width <= TABLE_GRAD_MAX_FLOATS,
+          f"a table of {n_rows} x {width} (at most {TABLE_GRAD_MAX_FLOATS} fp32 values)")
+    n_cta = max(1, min(-(-n // TABLE_GRAD_MIN_ROWS),
+                       TABLE_GRAD_CTAS_PER_SM * _sm_count(g.device.index)))
+    partial = torch.empty(n_cta, n_rows, width, dtype=torch.float32, device=g.device)
+    out = torch.empty(n_rows, width, dtype=torch.float32, device=g.device)
+    _launch("table_grad", g.device, _DTYPE_CODE[g.dtype], 64 if inds.dtype == torch.int64 else 32,
+            g.data_ptr(), inds.data_ptr(), n, width, n_rows, n_cta, partial.data_ptr(),
+            out.data_ptr())
+    return out

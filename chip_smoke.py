@@ -66,21 +66,25 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    S = 1, 63, 128, 500, 579, causal and not, logits above the clamp; heads
    past 128 columns (Dh 160, 192, 256, 384) in both dtypes for the
    attention link, K4 causal, K5's strides and K7, and a K1 chain at Dh
-   256;
+   256; the frequency table's gradient (`table_grad`) at 128 × 500
+   patches into 8 rows of width 768 and 512, bf16 and fp32, against its
+   plain version and bit-identical on a second call;
 10. the stage-2 training step (train/train.py) at caco_base in bf16: B=16,
    500 patches from `device_train_frontend` on synthetic 3-10-s wavs, 100
    tokens; 5 steps on one batch with warmup 1: K4 and K7 launched 12 times
-   per step and no K1, K2, K3 or K5; finite loss and grad_norm, the loss
-   falls from step 1 to step 4; peak device memory; the device's busy
-   time per step (the union of its kernel intervals, torch.profiler);
+   per step, `table_grad` once, and no K1, K2, K3 or K5; finite loss and
+   grad_norm, the loss falls from step 1 to step 4; peak device memory; the
+   device's busy time per step (the union of its kernel intervals,
+   torch.profiler);
 11. the fp32 10-s step (text dropout off): K4 12 per step and no K7; its
    loss and gradients at B=2 against the same fp32 step on the CPU through
    the plain versions; 3 timed steps;
 12. the bf16 30-s step at B=4 (1500 patches, blocked plan 1536): K5 12
    times per step and no K4 or K7; peak memory, 3 timed steps;
 13. time embed_audio at batch 32 (10-s and 30-s clips, bf16), each K1
-   kernel and chain, the K2 and K3 blocks, K3′, K4, K5, K6, K7, K8 and K8′
-   against their plain versions, and the bf16 10-s training step (median of 6),
+   kernel and chain, the K2 and K3 blocks, K3′, K4, K5, K6, K7, K8, K8′
+   and `table_grad` (64 000 × 768 → 8, bf16) against their plain versions,
+   and the bf16 10-s training step (median of 6),
    beside the card's name and power limit; each kernel's bound (its bytes
    or operations over the H100's peaks); the redesigned bf16 GEMM and
    attention against one PyTorch call in turns (torch.matmul at the 10-s
@@ -125,8 +129,9 @@ Phases (any failure exits non-zero and prints no final `ok` line):
    bf16 vs fp32 on the card (>= 0.999); (b) the stage-1 step, B=16, 500
    patches: bf16 4 steps under one masking (K4 and K7 24 times a step, the
    loss falls), fp32 (K4 24, K7 12: the decoder's 500 patches fail fp32's
-   `bwd_fits_vmem`), step times, peak memory, and fp32 loss and gradients
-   at B=2 against the CPU (1e-5, 1e-4); (c) (a)'s model written as a
+   `bwd_fits_vmem`), `table_grad` 3 times a step in both, step times, peak
+   memory, and fp32 loss and gradients at B=2 against the CPU (1e-5,
+   1e-4); (c) (a)'s model written as a
    released-layout stage-1 file and read back with `load_audiomae` (strict
    counts, config inferred == audiomae_base()), its bf16 reconstruction
    bit-identical to (a)'s; `runner --stage mae` for 2 steps and `runner
@@ -366,6 +371,9 @@ TOL = {
 # blocked MLP inside K3′ move bf16 rounding points).
 GRAD_TOL = 1e-4
 COS_VARIANT = 0.999
+# The frequency table's gradient against its plain version: both fp32 sums
+# of the same rows in another order (8 000 rows a table row at caco_base).
+TABLE_GRAD_TOL = 2e-5
 # K7's bf16 bound is wider than one kernel's: P and dS are rounded to bf16
 # before their products, so a rounding step of either moves a gradient by
 # one more.  The fp32 step on the card against the same step on the CPU
@@ -773,7 +781,40 @@ def attention_phase():
     errs["K7"] = max(errs["K7"], k7_wgmma_checks(gen))
     for key, err in wide_head_checks(gen).items():
         errs[key] = max(errs.get(key, 0.0), err)
+    errs["table_grad"] = table_grad_checks(gen)
     return errs
+
+
+def table_grad_checks(gen):
+    """Phase 9: the frequency table's gradient (csrc/table_grad.cu) at
+    caco_base's 128 × 500 patches into 8 rows of width 768 and at the MAE
+    decoder's 512, bf16 and fp32, each clip's padding at index 0, against
+    the plain fp32 sum (relative L2 ≤ TABLE_GRAD_TOL), and the same bits on
+    a second call → the largest relative error."""
+    b, s, err = 128, 500, 0.0
+    for width in (768, 512):
+        for dt in (torch.bfloat16, torch.float32):
+            g, inds = table_grad_inputs(b, s, width, dt, gen)
+            got = kern.table_grad(g, inds, 8)
+            want = kern.table_grad_plain(g, inds, 8)
+            rel = float((got - want).norm() / want.norm())
+            label = f"table_grad {_dt_name(dt)} {b * s} x {width} -> 8"
+            print(f"  {label}: relative L2 {rel:.3e}")
+            check(rel <= TABLE_GRAD_TOL, f"{label}: {rel:.3e} from the plain sum")
+            check(torch.equal(got, kern.table_grad(g, inds, 8)), f"{label}: a second call differs")
+            err = max(err, rel)
+    return err
+
+
+def table_grad_inputs(b, s, width, dt, gen):
+    """The gradient of b clips × s patches (on the card, (b·s, width) in dt)
+    and their frequency rows (int64, time-major over 8 rows, each clip's
+    padding at index 0)."""
+    inds = (torch.arange(s) % 8).repeat(b, 1)
+    lengths = torch.randint(s // 4, s + 1, (b,), generator=gen)
+    inds[torch.arange(s)[None, :] >= lengths[:, None]] = 0
+    g = (torch.randn(b * s, width, generator=gen) + 0.5).to(DEVICE, dt)
+    return g, inds.reshape(-1).to(DEVICE)
 
 
 def clamp_qkv(b, s, heads, hd, gen):
@@ -1018,7 +1059,8 @@ def train_bf16_phase(cfg, rs):
 
     torch.cuda.reset_peak_memory_stats()
     _, got = drive("bf16 10-s train step x5", steps,
-                   {"k4": n * TRAIN_STEPS, "k7": n * TRAIN_STEPS, "k5": 0, **NO_SERVING_KERNELS})
+                   {"k4": n * TRAIN_STEPS, "k7": n * TRAIN_STEPS, "k5": 0,
+                    "table_grad": TRAIN_STEPS, **NO_SERVING_KERNELS})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
@@ -1310,7 +1352,9 @@ def timing_phase(blk, label):
     block in fp32 at S=496, the K3 block and the K3′ layer in bf16 at
     S=1536, K6 in bf16 at S=496, and K8 and K8′ at 1000 and 3000 frames,
     all at B=32; K4 and K7 at the 10-s step's shape (B=16,
-    S=500, bf16) and K5 at the 30-s step's (B=4, S=1500 padded to 1536)."""
+    S=500, bf16) and K5 at the 30-s step's (B=4, S=1500 padded to 1536);
+    `table_grad` against fp32 `index_add_` at 128 × 500 patches of width D
+    into 8 rows, bf16."""
     b, s, d, h = BATCH, 496, D, H
     gen = torch.Generator().manual_seed(SEED + 1)
     lengths = list(np.random.RandomState(SEED).randint(48, 497, size=b))
@@ -1377,6 +1421,12 @@ def timing_phase(blk, label):
     variant = ("blocked", ea.FUSED_BLOCKED_Q_BLOCK)
     times["k3_layer"] = paired_ms(lambda: ea.fused_layer(blk, x30, m30, h, 1e-6, variant),
                                   lambda: ea.fused_layer_plain(blk, x30, m30, h, 1e-6, variant), 5)
+    # the frequency table's gradient of the bf16 10-s step at B=128: g read
+    # once, the indices read once, the fp32 table written once
+    g, inds = table_grad_inputs(128, 500, d, torch.bfloat16, gen)
+    bounds["table_grad"] = bound({}, g.numel() * 2 + inds.numel() * 8 + 8 * d * 4)
+    times["table_grad"] = paired_ms(lambda: kern.table_grad(g, inds, 8),
+                                    lambda: kern.table_grad_plain(g, inds, 8), 20)
     front = configs.FrontendConfig()
     for frames in (1000, 3000):
         bufs = 0.1 * torch.randn(b, frames * 160, generator=gen)
@@ -1398,7 +1448,8 @@ def timing_phase(blk, label):
             "k6_attn": "K6 LN1 → QKV → attention (bf16, S=496)",
             "k3_layer": "K3′ layer (bf16, S=1536)",
             "log_mel_fast_1000": "K8′ log-mel (1000 frames)",
-            "log_mel_fast_3000": "K8′ log-mel (3000 frames)"}
+            "log_mel_fast_3000": "K8′ log-mel (3000 frames)",
+            "table_grad": "table_grad (bf16, 64 000 x 768 -> 8)"}
     for k, (km, pm) in times.items():
         bms = f"  bound {bounds[k][0]:.4f} ms ({bounds[k][1]})" if k in bounds else ""
         print(f"  {what[k]:<38} kernel {km:.4f} ms  plain {pm:.4f} ms{bms}  ({label})")
@@ -1830,6 +1881,9 @@ def remat_phase(cfg, rs):
 # 500 patches, mask ratio 0.8 (100 visible, 400 to reconstruct); the
 # training step at B=16; the fp32 reconstruction against the CPU at B=2.
 MAE_BATCH, MAE_TRAIN_BATCH, MAE_STEPS, MAE_TIMED = 64, 16, 4, 5
+# frequency-table gathers a stage-1 step differentiates: the encoder's, and
+# the decoder's for the visible patches and for the restore set
+MAE_TABLES = 3
 MAE_SHORT_SAMPLES = 24_000  # 1.5 s: 72 valid patches, fewer than the 100 visible
 MAE_ARGS = ("patches", "mask", "time_inds", "freq_inds", "restore_time_inds",
             "restore_freq_inds", "restore_mask")
@@ -2021,7 +2075,8 @@ def mae_train_phase(rs, label):
 
         torch.cuda.reset_peak_memory_stats()
         _, got[name] = drive(f"{name} stage-1 step x{steps}", run_steps,
-                             {"k4": layers * steps, "k7": k7 * steps, **per_step})
+                             {"k4": layers * steps, "k7": k7 * steps,
+                              "table_grad": MAE_TABLES * steps, **per_step})
         losses = [mt["loss"] for mt in metrics]
         check(all(np.isfinite(losses + [mt["grad_norm"] for mt in metrics])),
               f"{name} stage-1 step: non-finite loss or grad_norm")
@@ -4036,6 +4091,11 @@ def run() -> dict:
             "log_mel_3000": {"ms": times["log_mel_3000"][0], "plain_ms": times["log_mel_3000"][1]},
             "log_mel_fast_3000": {"ms": times["log_mel_fast_3000"][0],
                                   "plain_ms": times["log_mel_fast_3000"][1]},
+            "table_grad": {"source": CSRC + "table_grad.cu", "max_rel_err": errs["table_grad"],
+                           "train_bf16_launches": path["K4"]["table_grad"],
+                           "ms": times["table_grad"][0], "plain_ms": times["table_grad"][1],
+                           "bound_ms": bounds["table_grad"][0],
+                           "bound_by": bounds["table_grad"][1]},
             "links": links, "attention_host": host, "hgmma": hgmma, "res_usage": res_usage,
             "silu_epilogue_mismatches": silu_bad,
             "variant_paths": variants, "inference_grads": grads,

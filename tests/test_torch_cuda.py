@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (K1's chain, K2/K3's block chain, K3′'s
 blocked layer, K6's LN1 → QKV → attention, K4, K5, K4's backward K7, K8's
-log-mel and its bf16×3 form K8′), against their plain PyTorch versions,
+log-mel and its bf16×3 form K8′, and the frequency table's gradient
+`table_grad`), against their plain PyTorch versions,
 and the fused routes' gradients on the card; the Hopper bf16 GEMM (every
 epilogue, ragged M, N and K, the caco_base shapes, the double rounding of
 EPI_BIAS_CAST_ADD, its silu against apply_epilogue over every fp32 input)
@@ -93,7 +94,7 @@ def test_launch_counters_count_kernel_launches(cuda):
         ea.fused_layer(blk.to(cuda), x.to(cuda), mask.to(cuda), 8, 1e-6)
         torch.cuda.synchronize()
     assert kern.LAUNCHES == {"layer_norm": 2, "gemm": 4, "attention": 1, "k4": 0, "k5": 0,
-                             "k7": 0, "log_mel": 0, "log_mel_fast": 0}
+                             "k7": 0, "log_mel": 0, "log_mel_fast": 0, "table_grad": 0}
     assert ea.LAYER_LAUNCHES["k1_layer"] == 1
 
 
@@ -362,6 +363,88 @@ def test_k4_backward_is_k7_only_where_jax_runs_it(cuda, dtype):
     assert kern.LAUNCHES["k4"] == 1
     assert kern.LAUNCHES["k7"] == (1 if dtype == "bfloat16" else 0)
     assert torch.isfinite(x.grad).all()
+
+
+def _table_grad_inputs(b, s, width, dtype, seed):
+    """Time-major patches over 8 frequency rows with each clip's padding at
+    index 0, and an upstream gradient with a component common to every
+    patch (CPU)."""
+    gen = torch.Generator().manual_seed(seed)
+    inds = (torch.arange(s) % 8).repeat(b, 1)
+    lengths = torch.randint(s // 4, s + 1, (b,), generator=gen)
+    inds[torch.arange(s)[None, :] >= lengths[:, None]] = 0
+    g = (torch.randn(b * s, width, generator=gen) + 0.5).to(dtype)
+    return g, inds.reshape(-1)
+
+
+def _rel_fp64(got, g, inds, n_rows=8):
+    ref = torch.zeros(n_rows, g.shape[-1], dtype=torch.float64).index_add_(0, inds.long(),
+                                                                         g.double())
+    return float((got.cpu().double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("width", [768, 512])
+@pytest.mark.parametrize("index_dtype", ["int64", "int32"])
+def test_table_grad_matches_plain(cuda, dtype, width, index_dtype):
+    """The frequency table's gradient at caco_base's 128 × 500 patches into
+    8 rows (width 768) and at the MAE decoder's width 512: fp32, within fp32
+    rounding of the fp64 sum and of the plain version, and the same bits on
+    a second call."""
+    g, inds = _table_grad_inputs(128, 500, width, getattr(torch, dtype), 40)
+    gc, ic = g.to(cuda), inds.to(cuda, getattr(torch, index_dtype))
+    got = kern.table_grad(gc, ic, 8)
+    plain = kern.table_grad_plain(gc, ic, 8)
+    assert got.dtype == torch.float32 and got.shape == (8, width)
+    assert _rel_fp64(got, g, inds) <= 1e-5
+    assert float((got - plain).norm() / plain.norm()) <= 2e-5
+    assert torch.equal(got, kern.table_grad(gc, ic, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width,offset", [(0, 768, 0), (1, 768, 0), (5, 768, 0),
+                                            (3001, 100, 0), (3001, 768, 1)])
+def test_table_grad_edges(cuda, n, width, offset):
+    """Fewer rows than a thread keeps in flight, no row at all, a width the
+    16-byte loads do not divide, and a base 2 bytes off 16-byte alignment
+    (the element-by-element path), in bf16."""
+    gen = torch.Generator().manual_seed(41)
+    flat = torch.randn(n * width + offset, generator=gen).to(torch.bfloat16)
+    g = flat[offset:].view(n, width)
+    inds = torch.randint(0, 8, (n,), generator=gen)
+    got = kern.table_grad(flat.to(cuda)[offset:].view(n, width), inds.to(cuda), 8)
+    ref = kern.table_grad_plain(g, inds, 8)
+    assert got.shape == (8, width)
+    assert torch.allclose(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_table_grad_refuses_a_large_table(cuda):
+    g = torch.randn(100, 768, device=cuda)
+    inds = torch.zeros(100, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        kern.table_grad(g, inds, 17)  # 17 × 768 fp32 values past 48 KB
+    with pytest.raises(ValueError):
+        kern.table_grad(g.half(), inds, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_frequency_table_backward_is_one_table_grad(cuda, dtype):
+    """A backward through the positions gather launches the kernel once and
+    hands the fp32 table its fp32 sum."""
+    from cacophony_tpu_torch.models import audio
+
+    td = getattr(torch, dtype)
+    g, inds = _table_grad_inputs(128, 500, 768, td, 42)
+    gc, ic = g.view(128, 500, 768).to(cuda), inds.view(128, 500).to(cuda)
+    table = torch.randn(8, 768, device=cuda, requires_grad=True)
+    kern.reset_launches()
+    audio.table_rows(table, ic, td).backward(gc)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["table_grad"] == 1
+    assert table.grad.dtype == torch.float32 and _rel_fp64(table.grad, g, inds) <= 1e-5
 
 
 def _reset_layer_launches():
