@@ -11,7 +11,8 @@ build raises.
 
 Each kernel has three things:
 - a plain PyTorch version (`*_plain`) with the kernel's numerics, on any
-  device: the CPU tests run it, and chip_smoke.py holds the kernel to it;
+  device: the CPU tests run it, and the `cuda`-marked tests hold the kernel
+  to it on the card;
 - a wrapper (`layer_norm`, `gemm`, `attention`, `attention_k4`,
   `attention_k5`, `attention_bwd`, `table_grad` here; `fused_log_mel` in
   frontend/fused.py)

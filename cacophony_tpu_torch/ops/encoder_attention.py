@@ -58,7 +58,7 @@ backward is autograd of the plain port of `_xla_layer`, `_xla_block` or
 `_xla_ln_attention`, recomputed from the saved inputs, with the textbook
 softmax of `xla_attention` inside (a fully masked row gets uniform weights
 there, not the chain's 0).  The `*_plain` functions run the plain chain on
-any device (the reference chip_smoke.py holds the kernels to).
+any device (the reference the `cuda`-marked tests hold the kernels to).
 
 **K4, K5 and K7** are what training reaches (`multi_head_attention`,
 ops/attention.py, for a one-shot or blocked plan).  `encoder_attention` is

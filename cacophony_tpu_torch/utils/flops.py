@@ -56,6 +56,31 @@ def device_peak_flops(device_name: str) -> Optional[float]:
     return None
 
 
+# One H100 SXM's published dense peaks by operand type (fp32 outside the
+# tensor cores) and its HBM3 rate: the kernels' least times
+# (scripts/kernel_times.py).  portbench/frozen.py keeps the benchmark's copy.
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: dict, nbytes: float):
+    """The least time of a function on one H100 SXM: the larger of its
+    operations over the peak of their type and its bytes (each input read
+    once, each output written once) over the memory rate.
+    ops: {"bf16" or "fp32": operations} → (ms, "operations" or "bytes")."""
+    t_ops = sum(n / PEAK[k] for k, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_flops(heads: int, hd: int, s: int, valid, products: int = 2) -> int:
+    """2·Dh flops per (query, valid key) for each of `products` S×S
+    products (Q·Kᵀ and P·V forward; five in the backward), per head, over
+    S queries; `valid` holds each clip's count of valid keys (masked keys
+    are work no caller needs)."""
+    return products * 2 * heads * hd * s * int(sum(valid))
+
+
 def frontend_matmul_flops(front: FrontendConfig, num_samples: int) -> int:
     """Windowed-DFT (re+im) + mel projection matmul FLOPs for one clip."""
     frames = -(-num_samples // front.hop_length)
