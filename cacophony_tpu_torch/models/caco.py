@@ -242,8 +242,9 @@ class GraphedStep:
     the output comes back in the graph's output buffer, overwritten by the
     next replay.  fn must read and write only tensors that outlive the
     graph (decode: the caches, the index, the cross K/V, the weights; the
-    engine's text tower: the parameters, read live): the graph keeps fn,
-    and with it what fn's closure holds.  A capture that fails raises."""
+    engine's audio bucket and text tower: the parameters, read live, and
+    the frontend's device tables, cached for the process): the graph keeps
+    fn, and with it what fn's closure holds.  A capture that fails raises."""
 
     def __init__(self, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor):
         self.fn = fn  # keeps what the graph reads alive (the weights in fn's closure)

@@ -12,20 +12,31 @@ audio_patch_batch, embed_texts, score, caption).
 - a bounded dispatch window: at most DISPATCH_WINDOW buckets in flight,
   each filled in pinned host memory and copied with non_blocking=True, so
   filling the next bucket overlaps the device's work on earlier ones;
-- text length bucketing to {16, 32, 64, max_text_len}; on a card the
-  text tower runs as one CUDA graph per (rows, bucket), captured on the
-  shape's first use and replayed for every chunk after it (the host's
-  launches of its ~730 small kernels a chunk were most of a query's time);
+- text length bucketing to {16, 32, 64, max_text_len};
+- on a card an audio bucket's device work (the copy of its buffers into
+  the graph's inputs, the frontend, the encoder, the pooler, the
+  normalisation) and the text tower each run as one CUDA graph per shape,
+  (rows, buffer samples) or (rows, bucket), captured on the shape's first
+  use and replayed for every bucket or chunk after it: the host's launches
+  of a bucket's ~280 kernels or a chunk's ~730 were slower than the card.
+  A replay casts the live fp32 parameters, so an in-place update of them
+  is seen; a parameter tensor replaced by another is not.  The kernels'
+  launch counts (`ops/_kernels.py:LAUNCHES`,
+  `ops/encoder_attention.py:LAYER_LAUNCHES`) read as eager mode's
+  (`CountedGraph`);
 - everything under `torch.inference_mode()`;
 - spans and counters (utils/profiling.py) while the recorder records:
   `engine.embed_audio` (a request each call) over `engine.fill`,
-  `engine.launch` (`engine.frontend`, then the model's `audio.encoder` and
-  `audio.pooler`) and `engine.retire` per bucket; `engine.embed_texts` (a
+  `engine.launch` (on the CPU `engine.frontend`, then the model's
+  `audio.encoder` and `audio.pooler`; on a card these three fire only
+  while a shape is captured, and `engine.launch` holds the replay and the
+  copy back) and `engine.retire` per bucket; `engine.embed_texts` (a
   request each call) over `engine.tokenize`, `engine.text_tower` and
   `engine.copy_back`; the counters `engine.buckets`, `engine.clips`,
   `engine.rows` (padding included), `engine.valid_patches`,
   `engine.patch_slots`, `engine.text_prompts` and `engine.text_rows`, and
-  on a card `engine.text_graph_captures` (one a shape) and
+  on a card `engine.audio_graph_captures` and `engine.text_graph_captures`
+  (one a shape), `engine.audio_graph_replays` (one a bucket) and
   `engine.text_graph_replays` (one a chunk).
 
 Each audio-encoder layer takes the JAX package's route for the compute
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -66,12 +78,79 @@ from cacophony_tpu_torch.models.caco import (
     get_audio_embedding,
     get_text_embedding,
 )
+from cacophony_tpu_torch.ops import _kernels as kern
+from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.ops.encoder_attention import preferred_seq_len
 from cacophony_tpu_torch.parallel.mesh import gather_rows, mesh_rows, replicate_params
 from cacophony_tpu_torch.utils.profiling import active, count, span
 
 TEXT_BUCKETS = (16, 32, 64)
 DISPATCH_WINDOW = 4  # audio buckets in flight (JAX engine.py:273)
+LAUNCH_COUNTS = (kern.LAUNCHES, ea.LAYER_LAUNCHES)  # the kernels' launch counts
+
+
+class CountedGraph:
+    """A `GraphedStep` of fn whose kernel launch counts (`LAUNCH_COUNTS`)
+    read as eager mode's: its warm-up and its capture leave them as they
+    found them, and each replay adds what the captured call launched."""
+
+    def __init__(self, fn, *inputs: torch.Tensor):
+        before = [dict(c) for c in LAUNCH_COUNTS]
+        launched = []
+
+        def counted(*xs):  # the last call is the capture's
+            start = [dict(c) for c in LAUNCH_COUNTS]
+            out = fn(*xs)
+            launched[:] = [(c, k, c[k] - s[k]) for c, s in zip(LAUNCH_COUNTS, start)
+                           for k in c if c[k] != s[k]]
+            return out
+
+        try:
+            self.graph = GraphedStep(counted, *inputs)
+        finally:
+            for c, b in zip(LAUNCH_COUNTS, before):
+                c.update(b)
+        self.launched = launched
+
+    def __call__(self, *inputs: torch.Tensor) -> torch.Tensor:
+        out = self.graph(*inputs)
+        for c, k, n in self.launched:
+            c[k] += n
+        return out
+
+
+def _patch_batch(bufs: torch.Tensor, lens: torch.Tensor, *, front: FrontendConfig,
+                 patch: PatchConfig, fused_frontend: bool, dtype: torch.dtype,
+                 device: torch.device):
+    """Host or device buffers → device patch dict: K8 or the unfused chain."""
+    with span("engine.frontend"):
+        bufs = bufs.to(device, non_blocking=True)
+        lens = lens.to(device, non_blocking=True)
+        if fused_frontend:
+            return fused_batch_wav_to_patches(bufs, lens, front, patch)
+        return wav_to_patches(bufs, lens, front, patch, dtype=dtype)
+
+
+# The engine's steps hold no reference to the engine: the graphs that keep
+# them go with the engine.
+
+def _audio_step(params: CacoModel, cfg: CacoConfig, patches):
+    """bufs, lens → unit embeddings on the device through `patches` (a
+    `_patch_batch`)."""
+
+    def step(bufs, lens):
+        return get_audio_embedding(params, cfg, **patches(bufs, lens))[0]
+
+    return step
+
+
+def _text_step(params: CacoModel, cfg: CacoConfig):
+    """ids, mask → unit embeddings."""
+
+    def step(ids, mask):
+        return get_text_embedding(params, cfg, ids, mask)[0]
+
+    return step
 
 
 class CacoEngine:
@@ -132,7 +211,13 @@ class CacoEngine:
                     f"on its batch shard)")
             replicate_params(self.params)
         self.peak_in_flight = 0  # most audio buckets in flight in the last embed_audio
-        self._text_graphs = {}  # (rows, bucket) → the text tower's GraphedStep on a card
+        self._patches = functools.partial(_patch_batch, front=self.front, patch=self.patch,
+                                          fused_frontend=fused_frontend, dtype=cfg.dtype,
+                                          device=self.device)
+        self._audio_step = _audio_step(self.params, cfg, self._patches)
+        self._text_step = _text_step(self.params, cfg)
+        self._audio_graphs = {}  # (rows, buffer samples) → CountedGraph on a card
+        self._text_graphs = {}  # (rows, bucket) → CountedGraph on a card
 
     # ------------------------------------------------------------- helpers
 
@@ -174,14 +259,17 @@ class CacoEngine:
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.mesh is None else gather_rows(x)
 
-    def _wav_to_patch_batch(self, bufs: torch.Tensor, lens: torch.Tensor):
-        """Host buffers → device patch dict: K8 or the unfused chain."""
-        with span("engine.frontend"):
-            bufs = bufs.to(self.device, non_blocking=True)
-            lens = lens.to(self.device, non_blocking=True)
-            if self.fused_frontend:
-                return fused_batch_wav_to_patches(bufs, lens, self.front, self.patch)
-            return wav_to_patches(bufs, lens, self.front, self.patch, dtype=self.cfg.dtype)
+    def _graphed(self, graphs: dict, kind: str, step, *inputs: torch.Tensor) -> torch.Tensor:
+        """step(*inputs) on a card as the replay of its CUDA graph for the
+        first input's shape, captured on that shape's first use (counters
+        `engine.<kind>_graph_captures`, `engine.<kind>_graph_replays`)."""
+        key = tuple(inputs[0].shape)
+        graph = graphs.get(key)
+        if graph is None:
+            count(f"engine.{kind}_graph_captures")
+            graph = graphs[key] = CountedGraph(step, *(x.to(self.device) for x in inputs))
+        count(f"engine.{kind}_graph_replays")
+        return graph(*inputs)
 
     def _count_bucket(self, lens: torch.Tensor, clips: int) -> None:
         """The recorder's counters of one bucket of this rank's rows: valid
@@ -195,19 +283,20 @@ class CacoEngine:
         count("engine.patch_slots", len(n) * self.patch.patches_seq_len)
 
     def _audio_bucket(self, bufs: torch.Tensor, lens: torch.Tensor):
-        """Launch one bucket → (host embeddings, event or None).  On a card
-        the copy back is queued behind the bucket without waiting; the
-        event says when it has landed.  Under a mesh this rank embeds its
-        rows and the embeddings are gathered."""
+        """Launch one bucket → (host embeddings, event or None).  On the
+        CPU `_audio_step` runs eagerly; on a card it is the replay of its
+        CUDA graph for the bucket's shape (`_graphed`), and the copy back is
+        queued behind it without waiting; the event says when it has
+        landed.  Under a mesh this rank embeds its rows and the embeddings
+        are gathered, outside the graph."""
         with span("engine.launch", device=self.device):
             rows = self._rows(bufs.shape[0])
-            batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
-            emb, _ = get_audio_embedding(self.params, self.cfg, batch["audio_patches"],
-                                         batch["audio_time_inds"], batch["audio_freq_inds"],
-                                         batch["audio_mask"])
-            emb = self._gather(emb)
             if self.device.type != "cuda":
-                return emb, None
+                return self._gather(self._audio_step(bufs[rows], lens[rows])), None
+            # the copy back queues behind the replay, before the next replay
+            # can overwrite the graph's output
+            emb = self._gather(self._graphed(self._audio_graphs, "audio", self._audio_step,
+                                             bufs[rows], lens[rows]))
             host = self._host(emb.shape, emb.dtype)
             host.copy_(emb, non_blocking=True)
             done = torch.cuda.Event()
@@ -258,7 +347,7 @@ class CacoEngine:
         n = len(wavs)
         bufs, lens = self._fill(wavs, -(-n // self.batch_size) * self.batch_size)
         rows = self._rows(bufs.shape[0])
-        batch = self._wav_to_patch_batch(bufs[rows], lens[rows])
+        batch = self._patches(bufs[rows], lens[rows])
         return {k: self._gather(v) for k, v in batch.items()}, n
 
     def embed_audio_long(self, wavs: Sequence[np.ndarray], *,
@@ -314,25 +403,13 @@ class CacoEngine:
     def _text_tower(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """This rank's rows of one chunk → their embeddings on the device.
         On the CPU `get_text_embedding` runs eagerly; on a card, as the
-        replay of a CUDA graph captured on the shape's first use (`GraphedStep`;
-        counters `engine.text_graph_captures`, `engine.text_graph_replays`).
+        replay of a CUDA graph captured on the shape's first use (`_graphed`).
         The graph casts the live parameters in every replay, so an in-place
         update of them is seen without a new capture."""
         ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
         if self.device.type != "cuda":
-            return get_text_embedding(self.params, self.cfg, ids, mask)[0]
-        graph = self._text_graphs.get(ids.shape)
-        if graph is None:
-            count("engine.text_graph_captures")
-            params, cfg = self.params, self.cfg
-
-            def tower(ids, mask):  # holds no reference to self: the graphs go with the engine
-                return get_text_embedding(params, cfg, ids, mask)[0]
-
-            graph = self._text_graphs[ids.shape] = GraphedStep(
-                tower, ids.to(self.device), mask.to(self.device))
-        count("engine.text_graph_replays")
-        return graph(ids, mask)
+            return self._text_step(ids, mask)
+        return self._graphed(self._text_graphs, "text", self._text_step, ids, mask)
 
     @torch.inference_mode()
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:

@@ -27,6 +27,7 @@ from cacophony_tpu_torch.ops import encoder_attention as ea
 from cacophony_tpu_torch.runtime import CacoEngine
 from cacophony_tpu_torch.runtime.continuous import ContinuousCaptioner
 from cacophony_tpu_torch.runtime.gallery import GalleryIndex
+from cacophony_tpu_torch.utils import profiling
 from torch_card import (COS, DECODE_REL, GALLERY_ATOL, LOG_MEL, RESAMPLE_ATOL, SCORE_TOL,  # noqa: F401
                         SEED, STEP_TOL, TOP2_GAP, WRITTEN, byte_vocab, check_close,
                         check_embeddings, clips, cosine_rows, cuda, decode_batch, drive,
@@ -128,6 +129,64 @@ def test_30s_engine_runs_k3_and_agrees_with_fp32(base, bf16_30s):
     assert eng32.patch.patches_seq_len == 1496
     a30_32, _ = drive(lambda: eng32.embed_audio(base.wavs30), dict.fromkeys(launches(), 0))
     assert cosine_rows(a30, a30_32) >= COS["bf16"]
+
+
+# route → (dtype, engine options, the chain's launch-count key)
+GRAPH_ROUTES = {"k1": (torch.bfloat16, {}, "k1_layer"),
+                "k2": (torch.float32, {}, "k2_block"),
+                "k8": (torch.bfloat16, {"fused_frontend": True}, "log_mel"),
+                "k3": (torch.bfloat16, {"buffer_seconds": 30.0}, "k3_block")}
+
+
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_audio_bucket_replays_its_graph_bit_for_bit(base, route):
+    """`embed_audio` on a card replays one CUDA graph per bucket shape: on
+    each route (bf16 10 s K1, fp32 10 s K2, fused frontend K8, bf16 30 s
+    K3), two calls whose tail buckets are mostly padding equal, bit for bit
+    and launch for launch, the eager `get_audio_embedding` of the same
+    `audio_patch_batch` buckets; one capture, one replay a bucket; after
+    block 1's weights are copied into block 0 in place, the next call
+    follows the eager result without a new capture."""
+    dtype, kw, chain = GRAPH_ROUTES[route]
+    wavs = base.wavs30 if route == "k3" else base.wavs
+    eng = engine(base, dtype, **kw)
+    calls = [wavs, wavs[:BATCH + 3]]  # tail buckets of 6 (70 clips) or 8 (40), then 3
+
+    @torch.inference_mode()
+    def eager(ws):
+        out = []
+        for i in range(0, len(ws), BATCH):
+            batch, n = eng.audio_patch_batch(ws[i:i + BATCH])
+            out.append(get_audio_embedding(eng.params, eng.cfg, **batch)[0][:n].cpu().numpy())
+        return np.concatenate(out)
+
+    blocks = eng.params.audio.blocks
+    saved = [p.detach().clone() for p in blocks[0].parameters()]
+    firsts = []
+    try:
+        for new_weights in (False, True):
+            if new_weights:
+                with torch.no_grad():
+                    for p, q in zip(blocks[0].parameters(), blocks[1].parameters()):
+                        p.copy_(q)
+            for j, ws in enumerate(calls):
+                with profiling.recording() as rec:
+                    got, graphed = drive(lambda: eng.embed_audio(ws), {})
+                want, eager_counts = drive(lambda: eager(ws), {})
+                assert np.array_equal(got, want), (route, new_weights, j)
+                assert graphed == eager_counts and graphed[chain] > 0
+                first = (j, new_weights) == (0, False)
+                assert rec.counters.get("engine.audio_graph_captures", 0) == int(first)
+                assert rec.counters["engine.audio_graph_replays"] == rec.counters["engine.buckets"]
+                assert rec.counters["engine.buckets"] == -(-len(ws) // BATCH)
+                if j == 0:
+                    firsts.append(got)
+    finally:
+        with torch.no_grad():
+            for p, s in zip(blocks[0].parameters(), saved):
+                p.copy_(s)
+    assert not np.array_equal(*firsts)  # the replay read the new weights
+    assert list(eng._audio_graphs) == [(BATCH, eng.buffer_samples)]
 
 
 def embed_by_layers(model, cfg, batch, layer):
