@@ -9,7 +9,9 @@ import torch
 from portbench import harness, plain
 from tiny_cells import context
 
-TRAINING = ["caco_base.train_10s"]
+# each training cell and the step factory its driver calls
+TRAINING = {"caco_base.train_10s": "make_caco_train_step",
+            "audiomae_base.pretrain_10s": "make_mae_train_step"}
 
 
 def _ctx(name, seconds=0.3):
@@ -23,7 +25,7 @@ def _correct(ctx) -> bool:
     return ok and res["failed"] == 0
 
 
-@pytest.mark.parametrize("name", ["caco_base.embed_10s", "caco_base.text_query"] + TRAINING)
+@pytest.mark.parametrize("name", ["caco_base.embed_10s", "caco_base.text_query"] + list(TRAINING))
 def test_control_fails(name):
     """The plain reference in lower precision (fp8 products; the gallery's
     scores in TF32, which the CPU computes in fp32) in the program's place
@@ -73,14 +75,14 @@ def test_altered_query_answer_fails(monkeypatch, what):
     assert not _correct(_ctx("caco_base.text_query"))
 
 
-@pytest.mark.parametrize("name", TRAINING)
+@pytest.mark.parametrize("name", list(TRAINING))
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch"])
 def test_training_fault_fails(monkeypatch, name, fault):
     """A step that returns its state unchanged; a step that leaves out half
     of the batch and takes the mean over the rest."""
     from cacophony_tpu_torch.train import train
 
-    real = train.make_caco_train_step
+    real = getattr(train, TRAINING[name])
 
     def broken(cfg, tc, mesh=None):
         step = real(cfg, tc)
@@ -101,5 +103,6 @@ def test_training_fault_fails(monkeypatch, name, fault):
 
         return run
 
-    monkeypatch.setattr(train, "make_caco_train_step", broken)
+    monkeypatch.setattr(train, TRAINING[name], broken)
     assert not _correct(_ctx(name))
+

@@ -12,6 +12,7 @@ import os
 
 import pytest
 
+import contract
 from cacophony_tpu_torch.utils import profiling
 from cacophony_tpu_torch.utils.profiling import Recording, Span
 from portbench import harness, run, spans
@@ -19,23 +20,15 @@ from tiny_cells import ROOT, context
 
 with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
     BENCH = json.load(f)
-NEW = {m["name"]: m for m in BENCH["per_layer"] if m["name"] in {
-    "embed.fill_ms", "embed.launch_ms", "embed.idle_in_fill_share", "embed.idle_in_launch_share",
-    "embed.patch_useful_share", "query.text_host_ms", "query.text_device_ms",
-    "query.text_rows_useful_share", "query.search_device_ms", "train.frontend_device_ms",
-    "train.forward_device_ms", "train.backward_device_ms", "train.optimizer_device_ms"}}
+NEW = {m["name"]: m for m in BENCH["per_layer"] if m["name"] in contract.THIRTEEN}
 
 
 def test_the_thirteen_entries():
-    assert len(NEW) == 13 and BENCH["per_layer"][-13:] == list(NEW.values())
-    for m in NEW.values():
-        device = m["source"] == "device_trace"
-        assert device == ("device" in m["name"] or "idle" in m["name"]), m["name"]
-        assert m["source"] in ("device_trace", "program_span", "program_counter")
+    contract.check_thirteen(BENCH)
 
 
 @pytest.mark.parametrize("cell", ["caco_base.embed_10s", "caco_base.text_query",
-                                  "caco_base.train_10s"])
+                                  "caco_base.train_10s", "audiomae_base.pretrain_10s"])
 def test_tiny_traced_cells_record_but_report_nothing_on_the_cpu(cell, monkeypatch):
     """The program records its spans and counters in a tiny traced stretch
     on the CPU, and none of the new metrics is read from it."""
@@ -54,7 +47,7 @@ def test_tiny_traced_cells_record_but_report_nothing_on_the_cpu(cell, monkeypatc
         assert {"engine.text_tower", "gallery.search"} <= names
         assert taken[0].counters["engine.text_rows"] == 4 * taken[0].counters[
             "engine.text_prompts"]  # batch 4
-    if cell == "caco_base.train_10s":
+    if ctx.cell.traffic["kind"].endswith("_train"):
         assert {"train.frontend", "train.forward", "train.backward", "train.optimizer"} <= names
 
 

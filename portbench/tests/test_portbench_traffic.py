@@ -70,3 +70,26 @@ def test_text_prompts_and_gallery():
     assert min(map(len, p1)) == 4 and max(map(len, p1)) == 30
     assert {len(p) <= 16 for p in p1} == {True, False}  # both text buckets occur
     assert torch.allclose(g1.norm(dim=1), torch.ones(3000))
+
+
+def test_pretrain_pool_and_masking_noise():
+    """The stage-1 pool: 10-s clips, as AudioSet's, whose audio and levels
+    are the seed's; the step generator, and with it each step's masking
+    noise, is the seed's."""
+    t = dict(_traffic("pretrain_10s"), pool_clips=24)
+    d = _driver("mae_train")
+    ref = harness.load_file(os.path.join(ROOT, "portbench", "configs", "audiomae_base_ref.py"))
+
+    def make(seed):
+        _, tseed, gseed, rng = d.seeds(seed)
+        pool, _, host = training.make_pool(t, 16_000, tseed, rng, "cpu")
+        gen = torch.Generator().manual_seed(gseed)
+        return pool, host, ref.noise(gen.get_state(), 4, t["seq_len"], "cpu")
+
+    a, b, c = make(2 ** 31 + 9), make(2 ** 31 + 9), make(2 ** 31 + 10)
+    for x, y in zip(a, b):
+        assert np.array_equal(np.asarray(x), np.asarray(y))
+    assert set(a[1]) == set(c[1]) == {160_000} and a[0].shape == (24, 160_000)
+    assert not torch.equal(a[0], c[0]) and not torch.equal(a[2], c[2])
+    level = 20 * torch.log10(a[0].square().mean(1).sqrt())
+    assert level.max() - level.min() > 25  # the clips' levels spread over tens of dB

@@ -49,6 +49,19 @@ def test_stage2_attention_by_hand():
     assert work.caco_attention_least_s(CACO, [160_000], 500) == pytest.approx(12 * sum(dec))
 
 
+def test_stage1_attention_by_hand():
+    """The stage-1 step: the encoder over 100 visible patches, the decoder
+    over the clip's valid ones (496 of a 10-s clip, 144 of a 3-s clip),
+    forward and backward, 12 layers each."""
+    mae = _config("audiomae_base")
+
+    def both(v):
+        return sum(work.attention_least_s(768, 8, [v], k) for k in (2, 5))
+
+    assert work.mae_attention_least_s(mae, [160_000, 48_000], 500) == pytest.approx(
+        12 * (2 * both(100) + both(496) + both(144)))
+
+
 @pytest.mark.parametrize("name,attention,gemm", [
     ("void k1::attention_bf16_wgmma_kernel<96>(CUtensorMap_st, int const*)", True, False),
     ("void k1::attn_bwd_main_wgmma<96>(CUtensorMap_st)", True, False),

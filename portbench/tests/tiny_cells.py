@@ -1,7 +1,9 @@
 """The benchmark's cells cut to a size a CPU test can hold: the real
-cell's files with the widths of `caco_tiny` and short, small traffic.
-Only the harness's logic is tested at this size; no number of it is a
-device number."""
+cell's files with small widths and short, small traffic.  Each cell's CPU
+form is a file of its own, tiny/<cell>.py, with `config()` (the
+configuration at those widths) and `TRAFFIC` (what it changes in the
+cell's mix).  Only the harness's logic is tested at this size; no number
+of it is a device number."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ def _config(name: str) -> dict:
 
 
 def caco() -> dict:
+    """`caco_base` at caco_tiny's widths."""
     c = _config("caco_base")
     c["audio"].update(SMALL)
     for k in ("text", "decoder"):
@@ -31,20 +34,22 @@ def caco() -> dict:
 
 TRAIN = dict(batch=4, seq_len=48, buffer_seconds=0.5, pool_clips=16, clip_seconds=[0.3, 0.5],
              reference_rows=2, profile_steps=2)
-TINY = {
-    "caco_base.embed_10s": (caco, dict(buffer_seconds=1.0, batch_size=4, pool_clips=10, passes=1,
-                                       short_seconds=[0.3, 1.0], check_clips=4, profile_calls=1)),
-    "caco_base.train_10s": (caco, dict(TRAIN, text_len=12, caption_tokens=[4, 10])),
-    "caco_base.text_query": (caco, dict(batch_size=4, text_len=12, prompts=16, prompt_tokens=[3, 10],
-                                        gallery_rows=5000, slab_rows=1024, profile_queries=3,
-                                        check_queries=8)),
-}
 
 
-def cell(name: str, **traffic) -> harness.Cell:
-    make, over = TINY[name]
-    real = harness.resolve(ROOT, name)
-    return dataclasses.replace(real, config=make(), traffic=dict(real.traffic, **over, **traffic))
+def tiny_file(name: str, root: str = ROOT) -> str:
+    return os.path.join(root, "portbench", "tests", "tiny", f"{name}.py")
+
+
+def form(name: str, root: str = ROOT):
+    """The cell's CPU form: its tiny file, loaded."""
+    return harness.load_file(tiny_file(name, root))
+
+
+def cell(name: str, root: str = ROOT, **traffic) -> harness.Cell:
+    tiny = form(name, root)
+    real = harness.resolve(root, name)
+    return dataclasses.replace(real, config=tiny.config(),
+                               traffic=dict(real.traffic, **tiny.TRAFFIC, **traffic))
 
 
 def context(name: str, seed: int = 2 ** 31 + 77, seconds: float = 0.3, trace: bool = False,

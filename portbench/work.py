@@ -90,3 +90,19 @@ def caco_attention_least_s(cfg: dict, lengths: Iterable[int], seq: int) -> float
     rows = [valid_patches(n, cfg["frontend"], seq) for n in lengths]
     return sum(a["num_layers"] * attention_least_s(a["hidden_size"], a["num_heads"], rows, k)
                for k in (2, 5))
+
+
+def mae_attention_least_s(cfg: dict, lengths: Iterable[int], seq: int) -> float:
+    """Forward and backward attention of the stage-1 step over each clip:
+    the encoder over its visible patches (round(seq · (1 − mask_ratio)) of
+    its valid ones), the decoder over its valid patches, visible and masked
+    (the grid's padding is masked out as keys, and no query there is
+    needed)."""
+    enc, dec = cfg["encoder"], cfg["decoder"]
+    keep = max(1, int(round(seq * (1.0 - cfg["mask_ratio"]))))
+    valid = [valid_patches(n, cfg["frontend"], seq) for n in lengths]
+    shown = [min(keep, v) for v in valid]
+    return sum(enc["num_layers"] * attention_least_s(enc["hidden_size"], enc["num_heads"], shown, k)
+               + dec["num_layers"] * attention_least_s(dec["hidden_size"], dec["num_heads"], valid,
+                                                       k)
+               for k in (2, 5))
